@@ -16,7 +16,7 @@ systems per time step ride the `foam` front end —
 The cylinder is a block of Dirichlet-pinned nodes inside the structured
 grid (the operator keeps its stencil structure: solid rows become
 identity, fluid↔solid couplings fold into the RHS with Thom wall
-vorticity), so the whole run stays on the DIA/fused TPU path.
+vorticity), so the whole run stays on the gather-free DIA path.
 
 Shedding is self-sustained above Re ≈ 50; the script reports the
 Strouhal number St = f·D/U from the probe-v zero crossings.  Square

@@ -1,6 +1,6 @@
-"""ogl_tpu — a TPU-native sparse linear-solver framework.
+"""ogl_tpu — a sparse linear-solver framework in JAX for NVIDIA GPUs.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of hpsim/OGL
+A ground-up JAX/XLA re-design of the capabilities of hpsim/OGL
 (the OpenFOAM–Ginkgo layer): runtime-selectable Krylov solvers
 (CG, BiCGStab, GMRES, IR, Multigrid) with OpenFOAM-compatible stopping
 semantics, preconditioners (block-Jacobi, ISAI, ILU/IC, AMG, Schwarz),

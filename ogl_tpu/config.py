@@ -3,17 +3,22 @@
 Accepts exactly the keys the reference reads (with identical defaults) so a
 user can paste their fvSolution solver sub-dict across:
 
-  executor           reference ExecutorHandler.H:128   (here: tpu|cpu|<jax platform>)
-  matrixFormat       lduLduBase.H:56, default "Coo"    (+ TPU-native "Dia", "Sell")
+  executor           reference ExecutorHandler.H:128: cuda -> the GPU (raises
+                     without one), reference|omp|cpu -> the CPU, unset -> JAX's
+                     default device (JAX_PLATFORMS decides)
+  matrixFormat       lduLduBase.H:56, default "Coo"    (+ "Dia", "Sell", "Ell",
+                     "Gdia", "Xell", "Hybrid")
   updateRHS          lduLduBase.H:224, default true
   updateInitGuess    lduLduBase.H:235, default false
   updateSysMatrix    (matrix coefficient re-upload), default true
   scaling            HostMatrix.C:33, default 1.0
   verbose            lduLduBase.H:49, default 0
   debug / export     lduLduBase.H:50,259
-  forceHostBuffer / ranksPerGPU / reorderOnHost — accepted, no-ops on TPU
-  fusedCG true / pipelinedCG false — TPU-only path selectors beyond the
-      reference key set (merged-kernel CG; single-reduction CG variant)
+  forceHostBuffer / ranksPerGPU / reorderOnHost — accepted, no-ops
+  fusedCG / fusedBiCGStab — accepted and ignored (older selectors of
+      merged-kernel solvers that no longer exist)
+  pipelinedCG false — single-reduction CG variant beyond the reference
+      key set
   tolerance 1e-6, relTol 1e-6, minIter 0, maxIter 1000,
   adaptMinIter true, relaxationFactor 0.6, resNormEval 0.1,
   normEvalLimit 100, evalFrequency 1            StoppingCriterion.H:165-177
@@ -94,8 +99,8 @@ class PrecondConfig:
     zero_guess: bool = True
     cycle: str = "v"
     coarse_solver_iters: int = 4
-    # TPU-specific: sweeps for the Jacobi-style approximate triangular solve
-    # used to apply ILU/IC factors (no sequential trisolve on TPU).
+    # sweeps for the Jacobi-style approximate triangular solve used to
+    # apply ILU/IC factors (no sequential trisolve on the device).
     tri_solve_sweeps: int = 8
     # "approx" (default: triSolveSweeps-truncated Neumann) or "exact": run
     # the same sweep iteration to each factor's dependency depth, which IS
@@ -111,10 +116,10 @@ class PrecondConfig:
     # matching like the reference's amgx_pgm; gather/scatter transfers)
     aggregation: str = "auto"
     # aggregate size per natural-aggregation level (coarsening rate).  The
-    # TPU cycle cost is launch-latency-bound across small levels, so a
-    # shallower hierarchy (rate 8) is faster per cycle than pairwise
+    # cycle cost is launch-latency-bound across small levels, so a
+    # shallower hierarchy (rate 8) is cheaper per cycle than pairwise
     coarsening_rate: int = 8
-    # coarsest-level solve: "direct" (dense inverse, one MXU matvec) or
+    # coarsest-level solve: "direct" (dense inverse, one matvec) or
     # "cg" (fixed-iteration CG, the reference's coarsest_gen)
     coarse_solver: str = "direct"
     # Jacobi smoother sweeps per pre/post smooth (reference smoother_gen:
@@ -123,7 +128,7 @@ class PrecondConfig:
     # storage precision of the preconditioner STATE ("default" = container
     # dtype, or "bfloat16"): a preconditioner only steers the Krylov
     # iteration, so narrowing its stored operator halves its HBM stream at
-    # the cost of (at most) a few extra outer iterations.  The TPU analogue
+    # the cost of (at most) a few extra outer iterations.  The analogue
     # of Ginkgo's block-Jacobi storage_optimization
     # (precision_reduction::autodetect), which the reference leaves
     # commented out (GKOIR.H:92-93).
@@ -133,7 +138,7 @@ class PrecondConfig:
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     solver: str = "GKOCG"
-    executor: str = "tpu"
+    executor: str | None = None
     matrix_format: str = "Coo"
     update_rhs: bool = True
     update_init_guess: bool = False
@@ -148,24 +153,11 @@ class SolverConfig:
     krylov_dim: int = 100
     # dtype of device compute ("float32"|"float64"|"bfloat16")
     dtype: str = "float32"
-    # use the merged-kernel CG path when eligible (GKOCG + Dia format +
-    # diagonal preconditioning on TPU)
-    fused_cg: bool = True
-    # use the merged-kernel BiCGStab (solve/bicgstab_fused.py) when
-    # eligible.  Default FALSE from measurement, not caution: the standard
-    # loop (whose SpMV already rides the Pallas DIA kernel) wins at BOTH
-    # the VMEM-resident and beyond-VMEM sizes — K1B's three halo windows
-    # re-read their overlap and re-stream r̂ per call, costing more than
-    # the separate dot passes it fuses (bicgstab_fused.py STATUS,
-    # re-measured BENCH_r05).  Kept selectable for wider-stencil operators
-    # where the trade can flip.
-    fused_bicgstab: bool = False
     # single-reduction (Chronopoulos–Gear) CG: fuse the per-iteration
     # <r,z>, <p,Ap> and ‖r‖₁ reductions into ONE psum — 3x fewer
     # collective latencies per distributed iteration (solve/cg_pipe.py).
-    # Applies to GKOCG on the general and distributed paths; overrides the
-    # merged-kernel fast path when set (beyond-reference feature, no
-    # reference analogue)
+    # Applies to GKOCG on the general and distributed paths
+    # (beyond-reference feature, no reference analogue)
     pipelined_cg: bool = False
     # bandwidth-reducing renumbering applied at setup: "none" | "rcm"
     # (OpenFOAM renumberMesh analogue; reduces Gdia plane count)
@@ -180,7 +172,7 @@ class SolverConfig:
     # (ldu.decompose cyclic_via_halo).  Same operator either way; the halo
     # route executes a real ppermute round per distributed iteration even
     # on a one-device mesh — the way the halo-exchange hot path is
-    # exercised (and benched) on a single chip
+    # exercised on a single device
     cyclic_via_halo: bool = False
     # force full device-matrix regeneration each solve instead of the
     # in-place value overwrite (reference CsrMatrixWrapper.H:76-136)
@@ -188,14 +180,9 @@ class SolverConfig:
     # distributed local-block format: "auto" (Dia if the union of diagonal
     # offsets across shards is narrow, else Gdia if the union plane table
     # is bounded, else Xell for large fully-unstructured shards, else Ell
-    # — with a loud warning when >=32768-row shards land on the XLA-gather
-    # Ell tier), "Dia", "Gdia", "Xell", or "Ell"
+    # — with a warning when >=32768-row shards land on the Ell gather
+    # tier), "Dia", "Gdia", "Xell", or "Ell"
     dist_local_format: str = "auto"
-    # whether matrixFormat was given explicitly: when False and the executor
-    # is an accelerator whose gather-based SpMV would be slow (Coo/Csr/Ell/
-    # Sell on TPU), the matrix is auto-packed into the fastest representable
-    # format (Dia -> Gdia -> Ell) instead of the reference default Coo
-    matrix_format_explicit: bool = True
     # GKOIR `inner` sub-dictionary (reference GKOIR.H:47-52 requires
     # subDict("inner") and builds an inner CG with its OWN OpenFOAM
     # stopping criterion).  None keeps the preconditioned-Richardson
@@ -205,7 +192,7 @@ class SolverConfig:
     # or "bfloat16"): mixed-precision defect correction — the outer
     # Richardson computes exact f32 residuals against the full-precision
     # matrix, so the solve converges to f32 accuracy while the inner CG
-    # streams a half-width operator (TPU HBM-bandwidth lever; no
+    # streams a half-width operator (a memory-bandwidth lever; no
     # reference analogue — Ginkgo's storage_optimization is commented out
     # in GKOIR.H:92-93)
     inner_precision: str = "default"
@@ -217,9 +204,8 @@ class SolverConfig:
     # (~0.4% of the per-step CHANGE, not of the coefficients) and does not
     # accumulate.  Blocks whose delta would exceed `uploadDeltaTol`
     # relative operator error are uploaded full-width instead (automatic
-    # f32 refresh).  Halves the dominant steady-state stream (PCIe-class
-    # cost on production parts; BENCH_r03: 291 ms step vs 35 ms device
-    # solve at 1M).  TPU-native lever, no reference analogue.
+    # f32 refresh).  Halves the steady-state host->device coefficient
+    # stream.  No reference analogue.
     upload_precision: str = "default"
     # max relative error (inf-norm, per block) the bf16 delta encoding may
     # leave against the exact f32 coefficients before the block falls back
@@ -238,7 +224,7 @@ class SolverConfig:
     # precision.  Restarts bound the accuracy cost: x accumulates across
     # cycles in full precision and the materialised OpenFOAM criterion
     # evaluates the TRUE residual, so no false convergence (solve/gmres.py;
-    # TPU-native lever, no reference analogue)
+    # no reference analogue)
     basis_precision: str = "default"
 
 
@@ -318,7 +304,8 @@ def parse_controls(controls: dict[str, Any]) -> SolverConfig:
         raise ValueError(f"matrixFormat {fmt!r} not in {MATRIX_FORMATS}")
 
     # GKOIR inner-solver sub-dict (reference GKOIR.H:47-52): its own full
-    # stopping-key set, plus the TPU-only `precision` storage override
+    # stopping-key set, plus the `precision` storage override (no reference
+    # analogue)
     inner = g("inner", None)
     inner_stopping = None
     inner_precision = "default"
@@ -342,7 +329,7 @@ def parse_controls(controls: dict[str, Any]) -> SolverConfig:
 
     return SolverConfig(
         solver=solver,
-        executor=str(g("executor", "tpu")),
+        executor=(str(g("executor")) if "executor" in controls else None),
         matrix_format=fmt,
         update_rhs=_as_bool(g("updateRHS", True)),
         update_init_guess=_as_bool(g("updateInitGuess", False)),
@@ -355,15 +342,12 @@ def parse_controls(controls: dict[str, Any]) -> SolverConfig:
         precond=precond,
         krylov_dim=int(g("krylovDim", 100)),
         dtype=str(g("dtype", "float32")),
-        fused_cg=_as_bool(g("fusedCG", True)),
-        fused_bicgstab=_as_bool(g("fusedBiCGStab", False)),
         pipelined_cg=_as_bool(g("pipelinedCG", False)),
         reorder=str(g("reorder", "none")),
         decomposition=str(g("decomposition", "simple")),
         cyclic_via_halo=_as_bool(g("cyclicViaHalo", False)),
         regenerate=_as_bool(g("regenerate", False)),
         dist_local_format=str(g("distLocalFormat", "auto")),
-        matrix_format_explicit="matrixFormat" in controls,
         inner_stopping=inner_stopping,
         inner_precision=inner_precision,
         upload_precision=_validated(

@@ -1,6 +1,6 @@
 """Sparse matrix containers as JAX pytrees.
 
-TPU-first re-design of the matrix-format layer the reference delegates to
+Re-design of the matrix-format layer the reference delegates to
 Ginkgo (``gko::matrix::{Coo,Csr,Ell}``, selected by the ``matrixFormat``
 keyword, reference CsrMatrixWrapper.H:138-161).  All containers are
 registered dataclass pytrees: array fields are traced leaves, shape/meta
@@ -12,11 +12,11 @@ Formats:
   Coo   — row/col/val triplets, row-major sorted.  Reference format and the
           exchange format for IO and conversion.
   Csr   — row_ptr/col/val.  Kept mainly for parity; SpMV uses the row ids.
-  Ell   — row-padded (n, K) col/val planes.  The general unstructured format
-          on TPU: SpMV is a dense (n,K) gather + reduce, no scalar loops.
+  Ell   — row-padded (n, K) col/val planes.  The general unstructured
+          format: SpMV is a dense (n,K) gather + reduce, no scalar loops.
   Dia   — diagonal storage for structured (stencil) matrices: SpMV is a sum
-          of shifted dense vector products — zero gathers, the
-          speed-of-light format on TPU (VPU + HBM-streaming friendly).
+          of shifted dense vector products — zero gathers, one fused
+          streaming loop.
   Sell  — sliced-ELL (SELL-C): rows grouped into slices of C=8 sublanes with
           per-slice padding buckets (reduces ELL padding waste).
 

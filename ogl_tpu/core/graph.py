@@ -4,11 +4,11 @@ The reference's integration matrix decomposes cases with both contiguous
 blocks (`simple`) and a graph partitioner (`scotch`)
 (reference test/integration.yaml:47-57, .github/workflows: decompositions
 simple-2 / simple-8 / scotch-8).  OGL itself never partitions — OpenFOAM's
-decomposePar does — but a standalone framework must own this step, and on
-TPU the partition quality directly sets the halo (ppermute) traffic of the
+decomposePar does — but a standalone framework must own this step, and
+the partition quality directly sets the halo (ppermute) traffic of the
 distributed SpMV.
 
-TPU-first design: the partitioner only has to produce a cell→part map at
+Design: the partitioner only has to produce a cell→part map at
 SETUP time (sparsity is constant across steps, HostMatrix.H:34), so it is
 plain host NumPy/SciPy.  Method: recursive bisection on the cell-connectivity
 graph, each bisection splitting a level-set (Cuthill-McKee) ordering of the

@@ -1,4 +1,4 @@
-"""LDU → row-major sparse conversion (the HostMatrix layer, TPU-first).
+"""LDU → row-major sparse conversion (the HostMatrix layer).
 
 Re-design of the reference's host matrix conversion
 (`HostMatrix/HostMatrix.C`, `HostMatrixFreeFunctions.C`): OpenFOAM stores a
@@ -8,7 +8,7 @@ boundary contributions as per-interface coefficient lists.  The reference
 converts this to row-major COO once (sparsity is constant across time steps,
 HostMatrix.H:34) and then re-scatters only coefficients each solve.
 
-TPU-first split:
+Host/device split:
   * one-time setup (this module, NumPy / native C++): build sorted
     (rows, cols) and the `ldu_permute` gather table — the vectorised
     equivalent of `init_local_sparsity` (HostMatrixFreeFunctions.C:105-201)

@@ -1,8 +1,8 @@
 """Bandwidth-reducing renumbering (reverse Cuthill-McKee).
 
-OpenFOAM ships renumberMesh for exactly this; on TPU it matters more:
-the fast general SpMV path (Gdia) stores one plane per block-row offset
-class, so solve cost scales with matrix bandwidth.  RCM brings FVM meshes
+OpenFOAM ships renumberMesh for exactly this; here it matters more: the
+banded unstructured format (Gdia) stores one plane per block-row offset
+class, so its SpMV cost scales with matrix bandwidth.  RCM brings FVM meshes
 to near-banded form.
 """
 

@@ -1,18 +1,17 @@
-"""Affine (separable) halo classes — the TPU fast path for the exchange.
+"""Affine (separable) halo classes — a gather-free route for the exchange.
 
-Measured on hardware (ARCHITECTURE.md session-4): XLA lowers index-driven
-gathers/scatters element-serially inside compiled loops (~22 ns/element),
-so the generic halo route (jnp.take + scatter) costs ~590 µs/iter at 1M —
-3.5× the whole no-halo CG iteration.  But the index sets of real
-decompositions are not random: processor-interface cells of slab/box
-decompositions of structured meshes (and the cyclic planes of periodic
-channels) form ARITHMETIC RUNS in the local numbering —
+The generic halo route gathers the send cells with jnp.take and places
+received values with a scatter.  The index sets of real decompositions are
+not random: processor-interface cells of slab/box decompositions of
+structured meshes (and the cyclic planes of periodic channels) form
+ARITHMETIC RUNS in the local numbering —
 
   stride 1      a contiguous slab of cells (z-normal interface)
   stride LANES  one fixed lane of the (R, 128) frame (x-normal interface,
                 cyclic wrap plane)
 
-For such runs the three halo ops compile to copies and tiny MXU matmuls
+For such runs the three halo ops compile to copies and tiny matmuls
+against lane one-hots (at HIGHEST precision, so the selection is exact)
 instead of gathers:
 
   send gather   stride-1:  lax.dynamic_slice of frame rows
@@ -28,8 +27,8 @@ uniform across parts — detection falls back to the generic gather route
 when it is not (or when a stride-1 run is not 128-aligned).
 
 No reference analogue: Ginkgo's sparse_communicator gathers through CUDA's
-hardware gather units (CsrMatrixWrapper.H:195-204); TPUs have no such
-path, so the structure must be lifted into the program.
+hardware gather units (CsrMatrixWrapper.H:195-204).  Whether this route
+beats the generic gather route on the GPU is open (ROADMAP design debt 2).
 """
 
 from __future__ import annotations
@@ -219,7 +218,11 @@ def affine_exchange(x2, send_runs, recv_runs, offsets, halo_size, n_parts,
                     x2, (_i32(row_off + start // LANES), _i32(0)),
                     (ln, LANES))
                 sel = sr.sels[my, j].astype(x2.dtype)
-                pieces.append((w @ sel[:, None])[:, 0])
+                # one-hot selection: exact only at HIGHEST (TF32 would
+                # round the selected halo values to ~10 mantissa bits)
+                pieces.append(jnp.matmul(
+                    w, sel[:, None],
+                    precision=jax.lax.Precision.HIGHEST)[:, 0])
         payload = jnp.concatenate(pieces) if len(pieces) > 1 else pieces[0]
         perm = [(i, (i + off) % n_parts) for i in range(n_parts)]
         recvd = jax.lax.ppermute(payload, axis, perm)
@@ -263,6 +266,8 @@ def affine_apply(q2, p2, h, vals_slot_order, row_runs: AffineRuns, my,
                 q2, w + contrib[:, None] * sel[None, :], (i0, _i32(0)))
             if p2 is not None:
                 pw = jax.lax.dynamic_slice(p2, (i0, _i32(0)), (ln, LANES))
-                d2 = d2 + jnp.sum(contrib * (pw @ sel[:, None])[:, 0])
+                d2 = d2 + jnp.sum(contrib * jnp.matmul(
+                    pw, sel[:, None],
+                    precision=jax.lax.Precision.HIGHEST)[:, 0])
         pos += ln
     return q2, d2

@@ -500,9 +500,9 @@ class DistAssembler:
         local/halo value storages: one jit'd program per changed-kind set
         (in practice one per run, e.g. 'diag only'), the LDU diag a single
         2-D slice write when its plan is affine.  Replaces the full-nnz
-        gather+scatter of the general path — XLA scatters on TPU are
-        element-serial, so a diag-only transient step drops from O(nnz) to
-        O(n) device work (cf. FoamSolver._apply_block_updates)."""
+        gather+scatter of the general path, so a diag-only transient step
+        drops from O(nnz) to O(n) device work (cf.
+        FoamSolver._apply_block_updates)."""
         key = tuple(kinds)
         fn = self._incr_fns.get(key)
         if fn is None:

@@ -3,7 +3,7 @@
 per-rank sizes with local<->global conversion and root-gather/scatter of
 per-rank arrays.
 
-On TPU the MPI Pstream gather/scatter becomes either host-side (numpy
+Here the MPI Pstream gather/scatter becomes either host-side (numpy
 concat/split — rank data is host-visible) or on-device all_gather; this
 class provides the host-side table (used for rank-0-style IO collection)
 while device-side collection goes through dist.solve's psum/all_gather.

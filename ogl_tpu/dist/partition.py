@@ -5,14 +5,14 @@ The reference realises distribution as one matrix shard per MPI rank with a
 SpMV (Partition.H:57-70, CsrMatrixWrapper.H:163-210, and the
 CommunicationPattern built from processor interfaces, HostMatrix.C:252-306).
 
-TPU-first re-design (SURVEY.md §2c mapping):
+Re-design (SURVEY.md §2c mapping):
   * shards live on a jax.sharding.Mesh axis; every per-shard array is
     stacked on a leading parts axis and shard_map'd;
   * the communication pattern compiles to a STATIC schedule of
     `lax.ppermute` rounds — one per ring-offset class d=(dst−src) mod P —
     so a 1/2/3-D domain decomposition needs only a handful of permutes,
-    each riding ICI neighbour links;
-  * the LOCAL (volume-sized) operator is stored per shard in a fast TPU
+    which XLA hands to NCCL;
+  * the LOCAL (volume-sized) operator is stored per shard in a device
     format stacked on the parts axis: DIA with the union of diagonal
     offsets across shards (gather-free SpMV — the reference's device-fast
     inner formats, CsrMatrixWrapper.H:138-161) with an ELL fallback for
@@ -46,7 +46,6 @@ __all__ = [
     "pack_local_stack",
     "pack_halo_stack",
     "shard_local_matrix",
-    "xell_stack_spill_tables",
     "partition_coo",
     "split_vector",
     "gather_global",
@@ -62,9 +61,9 @@ class HaloPlan:
                  (i−d) mod P; pads park at slot `halo_size` (sliced off).
 
     send_affine/recv_affine: per-class AffineRuns (dist.affine) when every
-    class's index sets decompose into uniform arithmetic runs — the TPU
-    fast path (slices + lane matmuls instead of element-serial gathers);
-    None falls back to the generic gather route."""
+    class's index sets decompose into uniform arithmetic runs — the
+    gather-free route (slices + lane one-hot matmuls); None falls back to
+    the generic gather route."""
 
     send_idx: tuple  # tuple of (P, S_k) int32 arrays
     recv_pos: tuple  # tuple of (P, S_k) int32 arrays
@@ -90,7 +89,7 @@ class DiaStack:
 class GdiaStack:
     """Per-shard Gdia local blocks stacked on the parts axis, sharing a
     UNION plane table (per block-row offset q: the max plane multiplicity
-    any shard needs) — the general unstructured fast path on TPU
+    any shard needs) — the banded unstructured local format
     (kernels/gdia.py) for shards too wide for DIA."""
 
     vals: jnp.ndarray  # (P, n_planes, R, 128)
@@ -103,9 +102,7 @@ class GdiaStack:
 class XellStack:
     """Per-shard Xell (crossed-gather, kernels/xell.py) local blocks
     stacked on the parts axis — the distributed fast tier for FULLY
-    unstructured shards (VERDICT r04 missing 2; reference: every inner
-    format of the distributed matrix is device-fast,
-    CsrMatrixWrapper.H:138-161).  All shards share the UNION statics
+    unstructured shards.  All shards share the UNION statics
     (n_slots, window framing, spill width) so the shard program is
     identical (SPMD); multi-process builds agree through the structure
     hook.  The value leaf is ONE flat (P, main + spill_e) array — main
@@ -123,55 +120,6 @@ class XellStack:
     c_chunks: int = static_field()
     n_tiles: int = static_field()
     spill_e: int = static_field()
-
-
-def xell_stack_spill_tables(stack: "XellStack"):
-    """Per-shard, per-destination-tile spill tables for the merged-kernel
-    dist path (cg_fused_dist): the single-device plan bakes SpillTables as
-    jit constants, but each SHARD has its own spill structure, so here the
-    tables ride shard_map as stacked TRACED operands instead.
-
-    Returns (idx4, gather) — np.int32 (P, nt, 8, S) each — or None when
-    the stack has no spill.  idx4 rows 0..3 = res/blk/tb/lane (the
-    kernels/xell.py SpillTables layout); `gather` holds flat indices into
-    the shard's (main + spill_e) value vector, −1 on unused slots (the
-    consumer masks those to value 0, exactly like SpillTables.padded_vals,
-    so they are inert regardless of the parked index tuple).  S is
-    derived from the AGREED spill_e (≥ any per-tile count), so
-    multi-process builds land on identical shapes without a new
-    agreement field.  The stack's own val-0 pad entries are bucketed like
-    real entries — harmless by value."""
-    from ogl_tpu.kernels.xell import LANES, TB
-
-    if stack.spill_e == 0:
-        return None
-    p = int(stack.spill_rows.shape[0])
-    nt = stack.n_tiles
-    main = nt * stack.n_slots * TB * LANES
-    s_max = max(128, 128 * -(-stack.spill_e // 128))
-    rows = np.asarray(jax.device_get(stack.spill_rows), np.int64)
-    cols = np.asarray(jax.device_get(stack.spill_cols), np.int64)
-    idx4 = np.zeros((p, nt, 8, s_max), np.int32)
-    gather = np.full((p, nt, 8, s_max), -1, np.int32)
-    for sh in range(p):
-        r, c = rows[sh], cols[sh]
-        tile = r // (TB * LANES)
-        order = np.argsort(tile, kind="stable")
-        counts = np.bincount(tile, minlength=nt)
-        assert counts.max() <= s_max, (counts.max(), s_max)
-        pos = (np.concatenate([np.arange(cnt) for cnt in counts if cnt])
-               if len(r) else np.zeros(0, np.int64))
-        t_o, r_o, c_o = tile[order], r[order], c[order]
-        idx4[sh, t_o, 0, pos] = (c_o % LANES).astype(np.int32)
-        idx4[sh, t_o, 1, pos] = (c_o // LANES - t_o * TB
-                                 + stack.c_left * 128).astype(np.int32)
-        idx4[sh, t_o, 2, pos] = ((r_o // LANES) % TB).astype(np.int32)
-        idx4[sh, t_o, 3, pos] = (r_o % LANES).astype(np.int32)
-        gather[sh, t_o, 0, pos] = (main + order).astype(np.int32)
-    assert idx4[:, :, 1].min() >= 0 and \
-        idx4[:, :, 1].max() < stack.c_chunks * 128, \
-        "spill column outside the Xell window (stack invariant broken)"
-    return idx4, gather
 
 
 @_pytree
@@ -327,8 +275,8 @@ def pack_local_stack(shards, n_local: int, dtype, fmt: str = "auto",
         )
         return stack, jnp.asarray(dest)
 
-    # ---- Gdia tier: general unstructured shards on TPU (lane-gather
-    # kernel) — shards share a UNION plane table (per block-row offset q
+    # ---- Gdia tier: banded unstructured shards (lane gathers) — shards
+    # share a UNION plane table (per block-row offset q
     # the max plane multiplicity any shard needs); multi-process packs
     # agree on the table through the hook.
     if fmt in ("auto", "Gdia"):
@@ -433,16 +381,13 @@ _XELL_MIN_ROWS = 1 << 15
 
 def _warn_ell_landing(n_local: int, cause):
     """The distributed twin of the single-device warning at
-    kernels/spmv.py pack_fast (VERDICT r04 missing 2: the dist Ell landing
-    used to be silent — a badly-numbered mesh decomposed across chips
-    landed orders off roofline with no signal)."""
+    kernels/spmv.py pack_fast."""
     import warnings
 
     why = f" (Xell stack packing failed: {cause})" if cause else ""
     warnings.warn(
-        f"pack_local_stack: {n_local}-row shards fell to the XLA-gather "
-        f"Ell tier{why}; distributed SpMV will be orders of magnitude off "
-        "roofline on TPU — renumber the mesh (reorder='rcm' /"
+        f"pack_local_stack: {n_local}-row shards fell to the Ell "
+        f"tier{why} — renumber the mesh (reorder='rcm' /"
         " decomposition='scotch') or raise the Xell window budget",
         RuntimeWarning, stacklevel=3)
 

@@ -160,18 +160,18 @@ def _build_isai(shards, n_local, dtype, sparsity_power, spd):
     M = _stacked_operator(m_shards, n_local, dtype)
     if not spd:
         def apply_g(s, r):
-            from ogl_tpu.kernels.spmv import apply_fast
+            from ogl_tpu.kernels.spmv import spmv
 
-            return apply_fast(s, r).astype(r.dtype)
+            return spmv(s, r).astype(r.dtype)
 
         return apply_g, M
     Mt = _stacked_operator(mt_shards, n_local, dtype)
 
     def apply_spd(s, r):
-        from ogl_tpu.kernels.spmv import apply_fast
+        from ogl_tpu.kernels.spmv import spmv
 
         m, mt = s
-        return (0.5 * (apply_fast(m, r) + apply_fast(mt, r))).astype(r.dtype)
+        return (0.5 * (spmv(m, r) + spmv(mt, r))).astype(r.dtype)
 
     return apply_spd, (M, Mt)
 
@@ -199,40 +199,11 @@ def _build_bj(shards, n_local, dtype, block_size):
 
     def apply(s, r):
         rp = jnp.pad(r, (0, nb * bs - n_local)).reshape(nb, bs)
-        y = jnp.einsum("bij,bj->bi", s.astype(r.dtype), rp)
+        y = jnp.einsum("bij,bj->bi", s.astype(r.dtype), rp,
+                       precision=jax.lax.Precision.HIGHEST)
         return y.reshape(-1)[: n_local]
 
     return apply, state
-
-
-def _fused_level(op, invd_stack, n_l):
-    """Fused framed-smoother plan for one stacked AMG level: each shard's
-    Jacobi sweep / residual becomes one Pallas pass inside shard_map
-    (mirrors precond.amg._fused_plan; None when the fused path does not
-    apply).  Returns (plan, data3 (P, nd, Rp, 128) bf16, invdf
-    (P, frame_rows, 128))."""
-    if (
-        jax.default_backend() != "tpu"
-        or not isinstance(op, Dia)
-        or not op.offsets
-        or n_l < (1 << 15)
-        or op.data.dtype != jnp.float32
-    ):
-        return None, None, None
-    from ogl_tpu.kernels.fused import CgKernels
-
-    try:
-        plan = CgKernels(n_l, op.offsets)
-    except ValueError:
-        return None, None, None
-    p = op.data.shape[0]
-    d3 = jnp.stack([
-        plan.pack_values(Dia(data=op.data[i], offsets=op.offsets,
-                             shape=(n_l, n_l)), dtype=jnp.bfloat16)
-        for i in range(p)
-    ])
-    ivf = jnp.stack([plan.frame(np.asarray(invd_stack)[i]) for i in range(p)])
-    return plan, d3, ivf
 
 
 def _build_amg(shards, n_local, dtype, cfg):
@@ -279,9 +250,6 @@ def _build_amg(shards, n_local, dtype, cfg):
     level_meta = []  # (offsets-static op template, n_l, nc) via closure lists
     level_ops = []
     level_invd = []
-    level_plans = []  # static fused-smoother plans (None off-TPU/small/Ell)
-    level_data3 = []
-    level_invdf = []
     n_l = n_local
     level_grid = []  # per-level (nz, ny, nx, nzc, nyc, nxc) or None
     grid_dims = None
@@ -308,10 +276,6 @@ def _build_amg(shards, n_local, dtype, cfg):
         invd = np.stack([_safe_inv(a.diagonal()) for a in mats]).astype(dtype)
         level_ops.append(op)
         level_invd.append(jnp.asarray(invd))
-        plan, d3, ivf = _fused_level(op, invd, n_l)
-        level_plans.append(plan)
-        level_data3.append(d3)
-        level_invdf.append(ivf)
         level_meta.append((n_l, nc))
         level_grid.append(gtuple)
         pm = sp.csr_matrix(
@@ -340,8 +304,7 @@ def _build_amg(shards, n_local, dtype, cfg):
         coarse_is_dense = False
     coarse_iters = max(4, cfg.coarse_solver_iters)
 
-    state = (tuple(level_ops), tuple(level_invd), coarse_state,
-             tuple(level_data3), tuple(level_invdf))
+    state = (tuple(level_ops), tuple(level_invd), coarse_state)
     n_levels = len(level_meta)
 
     def _coarse_cg(op, bvec):
@@ -351,7 +314,7 @@ def _build_amg(shards, n_local, dtype, cfg):
         return cg_fixed_iters(lambda v: _spmv(op, v), bvec, coarse_iters)
 
     def apply(s, r):
-        ops_, invds, cinv, data3s, invdfs = s
+        ops_, invds, cinv = s
 
         def smooth(li, x, bvec, x_is_zero=False):
             invd = invds[li].astype(bvec.dtype)
@@ -369,30 +332,11 @@ def _build_amg(shards, n_local, dtype, cfg):
 
             if li == n_levels:
                 if coarse_is_dense:
-                    return (cinv.astype(bvec.dtype) @ bvec).astype(bvec.dtype)
+                    return jnp.matmul(
+                        cinv.astype(bvec.dtype), bvec,
+                        precision=jax.lax.Precision.HIGHEST).astype(bvec.dtype)
                 return _coarse_cg(cinv, bvec)
             nl, nc = level_meta[li]
-            plan = level_plans[li]
-            if plan is not None:
-                # fused framed smoothers per shard (Pallas inside shard_map)
-                bf = plan.frame(bvec)
-                invdf = invdfs[li]
-                xf = relax * invdf * bf
-                for _ in range(sweeps - 1):
-                    xf = plan.ksweep(data3s[li], xf, bf, invdf, relax)
-                rf = plan.kresid(data3s[li], xf, bf)
-                res = plan.unframe(rf)
-                rc = (grid_restrict(level_grid[li], res)
-                      if level_grid[li] is not None else
-                      jnp.pad(res, (0, nc * w - nl)).reshape(nc, w).sum(axis=1))
-                ec = cyc(li + 1, rc)
-                ef = (grid_prolong(level_grid[li], ec)
-                      if level_grid[li] is not None else
-                      jnp.broadcast_to(ec[:, None], (nc, w)).reshape(-1)[:nl])
-                xf = xf + plan.frame(ef)
-                for _ in range(sweeps):
-                    xf = plan.ksweep(data3s[li], xf, bf, invdf, relax)
-                return plan.unframe(xf)
             x = smooth(li, None, bvec, x_is_zero=True)
             res = bvec - _spmv(ops_[li], x)
             rc = (grid_restrict(level_grid[li], res)

@@ -2,7 +2,7 @@
 initialisation and communicator plumbing (ExecutorHandler.H:115-179:
 MPI_COMM_WORLD wrapping, GPU-aware-MPI detection, forceHostBuffer).
 
-On TPU the transport questions disappear (XLA emits ICI/DCN collectives from
+The transport questions disappear (XLA emits NCCL collectives from
 shardings); what remains is process bootstrap and data staging:
 
   init_distributed()  -> jax.distributed.initialize from env/args (the
@@ -13,7 +13,7 @@ shardings); what remains is process bootstrap and data staging:
                          global array on any single host (the multi-host
                          replacement for jnp.asarray on a full stack)
 
-A v5e pod slice run is then:
+A multi-host run is then:
   ogl_tpu.dist.runtime.init_distributed()
   mesh = ogl_tpu.dist.runtime.global_mesh()
   ... DistAssembler on each process's OWN ranks, stage_stack the stacks,
@@ -88,7 +88,7 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> bool:
     """Initialise jax.distributed (multi-host).  Args default to the
     standard env variables (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID, or a TPU pod's built-in discovery when none are set).
+    JAX_PROCESS_ID).
     Returns True if a multi-process runtime was initialised, False when
     single-process (nothing to do — the reference aborts without MPI,
     lduLduBase.H:321-329; we support serial by design)."""
@@ -100,8 +100,8 @@ def init_distributed(coordinator_address: str | None = None,
     process_id = process_id if process_id is not None else (
         int(pid_str) if pid_str else None)
     if coordinator_address is None and num_processes is None:
-        # TPU pod slices self-discover through the TPU runtime; only attempt
-        # when explicitly requested to avoid hanging single-host runs
+        # only attempt when explicitly requested: an unconfigured
+        # initialize() would hang single-host runs
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -119,12 +119,13 @@ def schwarz_block_jacobi_builder(block_size: int):
         eye = jnp.eye(bs, dtype=blocks.dtype)
         diag_abs = jnp.abs(jnp.einsum("bii->bi", blocks))
         fix = (diag_abs == 0).astype(blocks.dtype)
-        blocks = blocks + jnp.einsum("bi,ij->bij", fix, eye)
+        blocks = blocks + fix[:, :, None] * eye[None]
         inv = jnp.linalg.inv(blocks)
 
         def apply(r):
             rp = jnp.pad(r, (0, nb * bs - n_local)).reshape(nb, bs)
-            y = jnp.einsum("bij,bj->bi", inv.astype(r.dtype), rp)
+            y = jnp.einsum("bij,bj->bi", inv.astype(r.dtype), rp,
+                           precision=jax.lax.Precision.HIGHEST)
             return y.reshape(-1)[:n_local]
 
         return apply
@@ -170,7 +171,7 @@ def dist_ops(local_m, halo, plan: HaloPlan, global_n: int, axis: str,
     DistMatrix) and a 128-aligned shard, the exchange and halo apply run
     the slice/matmul route (dist.affine) instead of XLA's element-serial
     gathers."""
-    from ogl_tpu.kernels.spmv import apply_fast
+    from ogl_tpu.kernels.spmv import spmv
 
     n_local = local_m.shape[0]
     h_rows, h_cols, h_vals = halo
@@ -184,7 +185,7 @@ def dist_ops(local_m, halo, plan: HaloPlan, global_n: int, axis: str,
                             axis=0)
 
     def mv(x):
-        y = apply_fast(local_m, x)
+        y = spmv(local_m, x)
         if plan.offsets:
             if affine_ok:
                 from ogl_tpu.dist.affine import (affine_apply,

@@ -9,7 +9,7 @@ syntax into plain Python dicts that feed config.parse_controls:
         p
         {
             solver          GKOCG;
-            executor        tpu;
+            executor        cuda;
             tolerance       1e-06;
             preconditioner  { preconditioner BJ; maxBlockSize 8; }
         }

@@ -1,18 +1,14 @@
-"""Gdia — generalized block-row DIA with lane indices: THE general
-unstructured SpMV format for TPU.
+"""Gdia — generalized block-row DIA with lane indices: a banded
+unstructured SpMV format.
 
-Motivation (measured, ARCHITECTURE.md): XLA's gather lowering makes
-Ell/Csr/Coo SpMV ~1000× off roofline on TPU, and Mosaic's only fast
-dynamic addressing is the in-register LANE gather
-(`take_along_axis(..., axis=1)`, ~3.4 µs per 1M elements).  Gdia therefore
-keeps row alignment STATIC and lane addressing DYNAMIC:
+Gdia keeps row alignment STATIC and lane addressing DYNAMIC:
 
   view vectors as (R, 128);  an entry (dst, src) has
     q = src//128 − dst//128   (block-row offset — static class)
     l = src%128               (source lane — per-entry data)
 
   storage: for each (q, plane) a pair of (R,128) streams — values and
-  int32 lane indices (multiple entries hitting the same destination slot
+  int8 lane indices (multiple entries hitting the same destination slot
   in the same class spill to extra planes);
 
   SpMV per plane:  acc += vals ⊙ lane_gather(row_shift(x, q), lidx)
@@ -21,27 +17,26 @@ The plane count is bounded by the matrix bandwidth in 128-row blocks
 (+ collision multiplicity), so bandwidth-reducing renumbering
 (core/reorder.rcm_permutation — OpenFOAM's renumberMesh analogue) is the
 setup-time companion.  Structured stencils need ~9 planes (vs 7 Dia
-diagonals); Dia remains the faster special case (no index stream).
+diagonals); Dia remains the cheaper special case (no index stream).
+Whether the format earns its place over Ell/Sell on the GPU is open
+(ROADMAP design debt 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ogl_tpu.core.formats import Coo, static_field, _pytree
 
 LANES = 128
 
 __all__ = ["Gdia", "gdia_from_coo", "gdia_layout", "gdia_requirements",
-           "spmv_gdia", "gdia_matvec"]
+           "spmv_gdia"]
 
 
 @_pytree
@@ -160,8 +155,7 @@ def gdia_from_coo(coo: Coo, max_planes: int = 64) -> Gdia:
 
 
 def spmv_gdia(m: Gdia, x):
-    """XLA reference implementation (correct everywhere; on TPU prefer the
-    Pallas kernel via gdia_matvec)."""
+    """y = A @ x: one static row shift and one lane gather per plane."""
     n = m.shape[0]
     r = m.vals.shape[1]
     qmax = max((abs(qv) for qv in m.plane_offsets), default=0)
@@ -173,91 +167,3 @@ def spmv_gdia(m: Gdia, x):
         g = jnp.take_along_axis(shifted, m.lidx[p].astype(jnp.int32), axis=1)
         acc = acc + m.vals[p].astype(x.dtype) * g
     return acc.reshape(-1)[:n]
-
-
-# ----------------------------------------------------------------------------
-# Pallas kernel
-# ----------------------------------------------------------------------------
-
-
-def _gdia_kernel(x_hbm, vals_ref, lidx_ref, y_ref, xs, sem,
-                 *, plane_offsets, T, K):
-    i = jnp.asarray(pl.program_id(0), jnp.int32)  # x64-safe (Mosaic slice indices must be i32)
-    num = pl.num_programs(0)
-    two = jnp.asarray(2, jnp.int32)
-    slot = jax.lax.rem(i, two)
-
-    def dma(tile_idx, s):
-        s = jnp.asarray(s, jnp.int32)  # literal slots are i64 under x64
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds(jnp.asarray(tile_idx * T, jnp.int32), T + 2 * K), :],
-            xs.at[s], sem.at[s]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        dma(0, 0).start()
-
-    @pl.when(i + 1 < num)
-    def _():
-        dma(i + 1, jax.lax.rem(i + 1, two)).start()
-
-    dma(i, slot).wait()
-
-    acc = jnp.zeros((T, LANES), jnp.float32)
-    for p, qv in enumerate(plane_offsets):
-        base = K + qv
-        shifted = xs[slot, base : base + T, :]
-        g = jnp.take_along_axis(shifted, lidx_ref[p].astype(jnp.int32), axis=1)
-        acc = acc + vals_ref[p].astype(jnp.float32) * g.astype(jnp.float32)
-    y_ref[:] = acc.astype(y_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("plane_offsets", "tile", "interpret"))
-def _gdia_padded(vals, lidx, xpad, *, plane_offsets, tile, interpret=False):
-    np_, rp, _ = vals.shape
-    K = (xpad.shape[0] - rp) // 2
-    grid = rp // tile
-    return pl.pallas_call(
-        functools.partial(_gdia_kernel, plane_offsets=plane_offsets, T=tile, K=K),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec((np_, tile, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((np_, tile, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((rp, LANES), xpad.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((2, tile + 2 * K, LANES), xpad.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-    )(xpad, vals, lidx)
-
-
-def gdia_matvec(m: Gdia, tile: int = 256, interpret: bool | None = None):
-    """x -> A@x via the lane-gather kernel (TPU; XLA fallback elsewhere)."""
-    if jax.default_backend() != "tpu" and not interpret:
-        return lambda x: spmv_gdia(m, x)
-    n = m.shape[0]
-    r = m.vals.shape[1]
-    qmax = max((abs(qv) for qv in m.plane_offsets), default=0)
-    k = -(-max(qmax, 1) // 8) * 8
-    t = min(tile, max(k, 8 * math.ceil(r / 8)))
-    rp = math.ceil(r / t) * t
-    pad_r = rp - r
-    vals = jnp.pad(m.vals, ((0, 0), (0, pad_r), (0, 0)))
-    lidx = jnp.pad(m.lidx, ((0, 0), (0, pad_r), (0, 0)))
-
-    def mv(x):
-        x2 = jnp.pad(jnp.asarray(x), (0, rp * LANES - n)).reshape(rp, LANES)
-        xpad = jnp.pad(x2, ((k, k), (0, 0)))
-        y = _gdia_padded(vals, lidx, xpad, plane_offsets=m.plane_offsets,
-                         tile=t, interpret=interpret)
-        return y.reshape(-1)[:n]
-
-    return mv

@@ -2,19 +2,21 @@
 
 This is the device hot loop of every Krylov solve (the work Ginkgo's CUDA
 kernels do for the reference — `solver->apply` per iteration,
-lduLduBase.H:272-276).  Design rules (see /opt/skills/guides/pallas_guide.md):
-static shapes everywhere (sparsity is compile-time constant), no scalar
-loops, gathers only where the format requires them:
+lduLduBase.H:272-276).  Design rules: static shapes everywhere (sparsity
+is compile-time constant), no scalar loops, gathers only where the format
+requires them:
 
   Coo/Csr — gather x[cols] + segment-sum.  Reference-parity formats; the
-            segment reduction lowers to an XLA scatter-add: correct
-            everywhere, not bandwidth-optimal on TPU.
+            segment reduction lowers to an XLA scatter-add (atomics on
+            the GPU, so the summation order varies from run to run).
   Ell     — dense (n,K) gather + product + row reduce.  The general
-            unstructured workhorse: one vectorised gather, then pure VPU.
+            unstructured workhorse: one vectorised gather, then
+            elementwise work.
   Sell    — SELL-C-σ width buckets: per-bucket dense gather+reduce,
             reducing padded FLOPs/bytes for skewed row lengths.
-  Dia     — static shifted dense products: ZERO gathers; for stencil
-            (structured-mesh) matrices this streams at HBM roofline.
+  Dia     — static shifted dense products: ZERO gathers; XLA fuses the
+            pad, the shifted slices and the multiply-adds into one loop
+            for stencil (structured-mesh) matrices.
 
 All functions take x of shape (n,) and return y = A @ x of shape (n,).
 `matvec(A)` returns a jit-friendly closure dispatched on format type.
@@ -83,12 +85,6 @@ def _spmv_gdia(m, x):
     return spmv_gdia(m, x)
 
 
-def _gdia_type():
-    from ogl_tpu.kernels.gdia import Gdia
-
-    return Gdia
-
-
 def spmv_hybrid(m, x):
     return spmv_ell(m.ell, x) + spmv_coo(m.coo, x)
 
@@ -121,12 +117,11 @@ def spmv(m, x):
 
 def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
               presorted: bool = False):
-    """Pack host COO triplets into the fastest TPU-representable format:
-    Dia (bounded distinct offsets, gather-free) → Gdia (bounded block-row
-    planes, lane gathers) → Xell (crossed-gather, fully unstructured) →
-    Ell (XLA gather fallback, loud-warned at scale).  Used for derived
-    operators (ISAI inverses, ILU/IC factors, AMG levels) whose applies
-    would otherwise ride XLA's catastrophic gather lowering.
+    """Pack host COO triplets into the densest format that represents
+    them: Dia (bounded distinct offsets, gather-free) → Gdia (bounded
+    block-row planes, lane gathers) → Xell (crossed-gather, fully
+    unstructured) → Ell (plain gather).  Used for derived operators (ISAI
+    inverses, ILU/IC factors, AMG levels).
     presorted=True skips the row-major sort (the LDU sparsity emits
     row-major order already)."""
     import numpy as np
@@ -157,10 +152,9 @@ def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
     except ValueError:
         pass
     if n >= (1 << 15):
-        # beyond the Gdia plane budget AND large enough that the XLA
-        # gather tier would be catastrophic (~1000x off roofline): the
-        # crossed-gather format covers arbitrary sparsity up to a window
-        # budget of c_max chunks of 128 block-rows
+        # beyond the Gdia plane budget: the crossed-gather format covers
+        # arbitrary sparsity up to a window budget of c_max chunks of 128
+        # block-rows
         try:
             from ogl_tpu.kernels.xell import xell_from_coo
 
@@ -169,9 +163,8 @@ def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
             import warnings
 
             warnings.warn(
-                f"pack_fast: {n}-row matrix fell to the XLA-gather Ell "
-                f"tier (Xell packing failed: {e}); SpMV will be orders of "
-                "magnitude off roofline on TPU — renumber the matrix "
+                f"pack_fast: {n}-row matrix fell to the Ell tier "
+                f"(Xell packing failed: {e}) — renumber the matrix "
                 "(reorder='rcm') or raise the Xell window budget",
                 RuntimeWarning, stacklevel=2)
     import jax.numpy as jnp
@@ -181,67 +174,8 @@ def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
     return coo_to_ell(coo)
 
 
-def pallas_usable() -> bool:
-    """True when the Pallas TPU kernels can compile in this process.
-    Under global `jax_enable_x64` Mosaic fails to lower them (i64 leaks
-    into slice/rotate indices and return legalisation even for f32 data,
-    verified on v5e) — those processes fall back to the XLA paths."""
-    import jax
-
-    return (jax.default_backend() == "tpu"
-            and not jax.config.jax_enable_x64)
-
-
-def _pallas_dtype_ok(m):
-    """The Pallas kernels accumulate in f32; routing f64 containers through
-    them would silently degrade precision vs the XLA paths."""
-    import jax.numpy as jnp
-
-    return jnp.dtype(m.dtype) in (jnp.float32, jnp.bfloat16)
-
-
-def apply_fast(m, x):
-    """SpMV dispatch for derived operators INSIDE jit: Pallas kernels on TPU
-    for large f32 Dia/Gdia, XLA otherwise (small Pallas tiles fault on hw;
-    f64 needs the XLA paths' native-precision accumulate)."""
-    import jax
-
-    big = (m.shape[0] >= (1 << 15) and pallas_usable()
-           and _pallas_dtype_ok(m))
-    if isinstance(m, Dia) and big and m.offsets:
-        from ogl_tpu.kernels.pallas_spmv import dia_matvec
-
-        return dia_matvec(m)(x)
-    if type(m).__name__ == "Gdia" and big:
-        from ogl_tpu.kernels.gdia import gdia_matvec
-
-        return gdia_matvec(m)(x)
-    if type(m).__name__ == "Xell" and big:
-        from ogl_tpu.kernels.xell import xell_matvec
-
-        return xell_matvec(m)(x)
-    return _lookup(m)(m, x)
-
-
 def matvec(m):
     """Return `x -> A @ x` closing over the (pytree) matrix; suitable for
-    capture inside jit/while_loop bodies.  On TPU the Dia and Gdia formats
-    route to their Pallas kernels (the XLA lowerings are far off roofline,
-    see ARCHITECTURE.md)."""
-    import jax
-
-    if pallas_usable() and _pallas_dtype_ok(m):
-        if isinstance(m, Dia) and m.offsets:
-            from ogl_tpu.kernels.pallas_spmv import dia_matvec
-
-            return dia_matvec(m)
-        if type(m).__name__ == "Gdia":
-            from ogl_tpu.kernels.gdia import gdia_matvec
-
-            return gdia_matvec(m)
-        if type(m).__name__ == "Xell":
-            from ogl_tpu.kernels.xell import xell_matvec
-
-            return xell_matvec(m)
+    capture inside jit/while_loop bodies.  Dispatches on the format type."""
     f = _lookup(m)
     return lambda x: f(m, x)

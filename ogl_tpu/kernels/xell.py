@@ -1,81 +1,52 @@
-"""Xell — crossed-gather ELL: the TPU fast path for FULLY unstructured
-sparsity (the tier Dia/Gdia cannot reach).
+"""Xell — crossed-gather ELL for FULLY unstructured sparsity (the tier
+Dia/Gdia cannot reach).
 
-Why it exists (VERDICT r03 item 2): the format ladder ended at
-Dia -> Gdia(<=48 block-row planes) -> Ell-via-XLA-gather, and the Ell tier
-is ~1000x off roofline on TPU.  Gdia's planes are GLOBAL block-row offsets,
-so its plane count scales with matrix bandwidth: an RCM'd random FV-graph
-(kNN-6, 1M cells) has bandwidth ~112 blocks and needs hundreds of planes at
-single-digit fill.  The reference never faces this: every Ginkgo inner
-format is device-fast on GPU (CsrMatrixWrapper.H:138-161), because GPUs
-have hardware gather.  TPUs do not — Mosaic's only fast dynamic addressing
-is the in-register LANE gather (`take_along_axis(..., axis=1)`), and the
-only fast layout flip is an MXU identity-matmul transpose (measured
-~0.31 us per (128,128) at exact/HIGHEST precision vs 22.7 us for Mosaic's
-native relayout).
-
-Design (measured on v5e, 2026-08): decompose the arbitrary gather
-x[c], c = 128*a + b, into two lane gathers crossed by one exact MXU
+Gdia's planes are GLOBAL block-row offsets, so its plane count scales
+with matrix bandwidth: an RCM'd random FV-graph (kNN-6, 1M cells) needs
+hundreds of planes at single-digit fill.  Xell decomposes the arbitrary
+gather x[c], c = 128*a + b, into two lane gathers crossed by one
 transpose.  View vectors as (R, 128) [block a = sublane-row, residue
 b = lane].  Per destination tile of 128 block-rows (16384 rows) and per
 slot k:
 
-  stage 1 (block select, transposed space):  on the MXU-transposed window
+  stage 1 (block select, transposed space):  on the transposed window
       chunks xwT[c] (128 residues x 128 window blocks) gather
       g1T[b, t] = xwT[.][b, bbT[k, b, t]]  — per residue b, pick the ONE
       source block slot k uses for destination block-row t;
-  cross:  g1 = T(g1T) via exact MXU transpose (identity matmul,
-      precision=HIGHEST — bf16x3 reproduces f32 bit-exactly);
+  cross:  g1 = T(g1T);
   stage 2 (lane select, natural space):
       y[t, l] += vals[k, t, l] * g1[t, ll[k, t, l]].
 
 Packing therefore needs, per slot k: (a) one entry per destination row
 (t, l); (b) per (t, source-residue b) a single source block.  That is a
 bipartite edge-colouring; first-fit greedy needs K ~= max row degree +
-collision slack (K=17 covers 99.9% of a 1M kNN-6 graph; measured fill
-45-78% for the first 12 slots).  The ~0.1% tail spills to a COO side term
-that rides IN-KERNEL as one-hot MXU matmuls (SpillTables below; the XLA
-segment_sum it replaces cost ~15 µs per 1k entries — 129 of 446 µs at 1M).
-Measured (v5e, 2026-08, K=16, 8.5k spill): 359 µs per 1M-row kNN-6 SpMV,
-2.34x the pure streaming bound (vs ~100 ms on the Ell tier).  Measured
-dead ends, so nobody retries them: batching the per-slot MXU transposes
-into one (128, K·128) op needs lane-axis concatenates that cost MORE than
-the small matmuls saved (449 → 514 µs); packing fewer slots + larger spill
-loses at any exchange rate once the spill is in-kernel (the marginal slot
-is ~18 µs where ~1k more spill entries are ~2 µs); packing to ZERO spill
-costs +7 slots (K=23, fill 31%) = +128 µs for a 41 µs saving.
+collision slack (K=17 covers 99.9% of a 1M kNN-6 graph).  The ~0.1% tail
+spills to a COO side term.
 
 Storage per slot: vals f32 (n), stage-2 lanes int8 (n), stage-1 blocks
 int16 (n) = 7 B/slot-entry.  All shapes static; value updates ride the
-same ValueMap scatter as every other format.
-
-Reference parity: this is the `gko::matrix::Csr`-on-GPU role for matrices
-whose RCM'd bandwidth exceeds the Gdia plane budget
-(CsrMatrixWrapper.H:138-161); no reference code is copied or copyable —
-the layout has no CUDA analogue.
+same ValueMap scatter as every other format.  `spmv_xell` stacks the nt
+tile windows, so its working memory grows with the window count.
+Whether the format earns its place over Ell/Sell on the GPU, where
+gathers are native, is open (ROADMAP design debt 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-import hashlib
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ogl_tpu.core.formats import Coo, static_field, _pytree
 
 LANES = 128
 TB = 128  # block-rows per destination tile
 
-__all__ = ["Xell", "XellCgKernels", "SpillTables", "xell_layout",
-           "xell_from_coo", "xell_spill_tables", "spmv_xell",
-           "xell_matvec", "xell_to_coo"]
+__all__ = ["Xell", "xell_layout", "xell_from_coo", "spmv_xell",
+           "xell_to_coo"]
 
 
 @_pytree
@@ -213,8 +184,8 @@ def xell_layout(rows, cols, n: int, k_max: int = 32,
         if remaining > max(target, int(0.2 * nnz)):
             raise ValueError(
                 f"Xell packing left {remaining}/{nnz} entries after "
-                f"{k_max} slots: sparsity too irregular for the TPU fast "
-                "path (raise k_max or renumber)")
+                f"{k_max} slots: sparsity too irregular for the Xell format "
+                "(raise k_max or renumber)")
 
     k_used = int(slot.max()) + 1 if nnz else 0
     k_used = max(k_used, 1)
@@ -306,8 +277,7 @@ def _pad_x(m: Xell, x):
 
 
 def spmv_xell(m: Xell, x):
-    """XLA reference implementation (correct everywhere; on TPU prefer the
-    Pallas kernel via xell_matvec)."""
+    """y = A @ x through the two crossed gathers (module docstring)."""
     n = m.shape[0]
     nt, k = int(m.vals.shape[0]), int(m.vals.shape[1])
     c = m.c_chunks
@@ -328,498 +298,3 @@ def spmv_xell(m: Xell, x):
         prod = m.spill.vals.astype(x.dtype) * jnp.take(x, m.spill.cols, axis=0)
         y = y + jax.ops.segment_sum(prod, m.spill.rows, num_segments=n)
     return y
-
-
-# ----------------------------------------------------------------------------
-# Pallas kernel
-# ----------------------------------------------------------------------------
-
-
-def _eye_f32():
-    r = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    return (r == c).astype(jnp.float32)
-
-
-def _mxu_t(eye, a):
-    """Exact (128,128) f32 transpose on the MXU: T(a)[i,j] = sum_k
-    eye[k,i]*a[j,k]; HIGHEST = bf16x3, bit-exact for f32 (measured
-    0.31 us vs 22.7 us for Mosaic's native relayout)."""
-    return jax.lax.dot_general(eye, a, (((0,), (1,)), ((), ())),
-                               preferred_element_type=jnp.float32,
-                               precision=jax.lax.Precision.HIGHEST)
-
-
-@dataclasses.dataclass(frozen=True)
-class SpillTables:
-    """Per-destination-tile bucketing of the COO spill, padded to a static
-    width S (multiple of 128): the spill then rides INSIDE the Pallas
-    kernels as one-hot MXU matmuls (~0.5 µs/tile) instead of an XLA
-    segment_sum — measured 129 µs of the 446 µs 1M kNN-6 apply (29%) for
-    8.5k spill entries, the single largest cost in the crossed-gather
-    SpMV after the streaming floor.  All index tables are STATIC (baked
-    as jit constants, ~9·S·nt bytes); only the values ride traced, gathered
-    from spill.vals by `gather` so coefficient updates flow through."""
-
-    res: np.ndarray      # (nt, S) i32 source residue  (col % 128)
-    blk: np.ndarray      # (nt, S) i32 window block    (col//128 − tile·128 + c_left·128)
-    tb: np.ndarray       # (nt, S) i32 dest block-row in tile
-    lane: np.ndarray     # (nt, S) i32 dest lane
-    gather: np.ndarray   # (nt, S) i32 index into spill.vals, −1 = padding
-    digest: bytes        # hash key for plan identity
-
-    @property
-    def s_max(self) -> int:
-        return int(self.res.shape[1])
-
-    def idx4(self) -> np.ndarray:
-        """(nt, 8, S) i32 — rows 0..3 = res/blk/tb/lane (rows 4..7 zero
-        padding: Mosaic blocks need sublane counts divisible by 8)."""
-        nt, s = self.res.shape
-        out = np.zeros((nt, 8, s), np.int32)
-        out[:, 0], out[:, 1] = self.res, self.blk
-        out[:, 2], out[:, 3] = self.tb, self.lane
-        return out
-
-    def padded_vals(self, spill_vals, dtype=jnp.float32):
-        """(nt, 8, S) traced values (row 0; 0 on padding) from the COO
-        spill values."""
-        g = jnp.asarray(self.gather)
-        v = jnp.where(g >= 0,
-                      jnp.take(spill_vals.astype(dtype),
-                               jnp.clip(g, 0), mode="clip"),
-                      jnp.zeros((), dtype))
-        return jnp.pad(v[:, None, :], ((0, 0), (0, 7), (0, 0)))
-
-
-def xell_spill_tables(m: Xell) -> SpillTables | None:
-    """Host-side bucketing (requires CONCRETE spill arrays — returns the
-    tables for in-kernel spill; callers with traced structure fall back to
-    the XLA segment_sum path)."""
-    n_spill = int(m.spill.vals.shape[0])
-    if n_spill == 0:
-        return None
-    nt = int(m.vals.shape[0])
-    rows = np.asarray(jax.device_get(m.spill.rows), np.int64)
-    cols = np.asarray(jax.device_get(m.spill.cols), np.int64)
-    tile = rows // (TB * LANES)
-    order = np.argsort(tile, kind="stable")
-    counts = np.bincount(tile, minlength=nt)
-    s_max = max(128, 128 * -(-int(counts.max()) // 128))
-    res = np.zeros((nt, s_max), np.int32)
-    blk = np.zeros((nt, s_max), np.int32)
-    tb = np.zeros((nt, s_max), np.int32)
-    lane = np.zeros((nt, s_max), np.int32)
-    gather = np.full((nt, s_max), -1, np.int32)
-    pos = np.concatenate([np.arange(c) for c in counts if c]) if n_spill else \
-        np.zeros(0, np.int64)
-    t_o, r_o, c_o = tile[order], rows[order], cols[order]
-    res[t_o, pos] = (c_o % LANES).astype(np.int32)
-    blk[t_o, pos] = (c_o // LANES - t_o * TB + m.c_left * 128).astype(np.int32)
-    tb[t_o, pos] = ((r_o // LANES) % TB).astype(np.int32)
-    lane[t_o, pos] = (r_o % LANES).astype(np.int32)
-    gather[t_o, pos] = order.astype(np.int32)
-    assert blk.min() >= 0 and blk.max() < m.c_chunks * 128, \
-        "spill column outside the Xell window (layout invariant broken)"
-    digest = hashlib.sha1(
-        b"".join(a.tobytes() for a in (res, blk, tb, lane, gather))).digest()
-    return SpillTables(res=res, blk=blk, tb=tb, lane=lane, gather=gather,
-                       digest=digest)
-
-
-def _spill_corr(w_nat, sidx_ref, sval_ref, n_chunks):
-    """In-kernel spill correction for one destination tile: corr[tb, l] =
-    Σ_s v_s · W[w_s, r_s] · 1[tb=tb_s] · 1[l=lane_s] via one-hot MXU
-    matmuls on the natural window W (c·TB, LANES).  Padding entries carry
-    v=0, so garbage indices contribute nothing.  Both matmuls keep a
-    one-hot operand at HIGHEST precision — exact for f32.  sidx: (1,8,S)
-    i32 rows 0..3 = res/blk/tb/lane; sval: (1,8,S) f32 row 0."""
-    f32 = jnp.float32
-    sidx = sidx_ref[0]                           # (8, S) i32
-    res, blk = sidx[0:1], sidx[1:2]              # (1, S)
-    tb_t, lane_t = sidx[2:3], sidx[3:4]
-    val = sval_ref[0][0:1]                       # (1, S) f32
-    s = res.shape[1]
-    e_res = (jax.lax.broadcasted_iota(jnp.int32, (LANES, s), 0)
-             == res).astype(f32)                 # (128_b, S)
-    wsel = jax.lax.dot_general(                  # (c·TB, S) = W[t, r_s]
-        w_nat.astype(f32), e_res, (((1,), (0,)), ((), ())),
-        preferred_element_type=f32, precision=jax.lax.Precision.HIGHEST)
-    e_blk = (jax.lax.broadcasted_iota(jnp.int32, (n_chunks * TB, s), 0)
-             == blk).astype(f32)
-    m1 = jnp.sum(wsel * e_blk, axis=0, keepdims=True)     # (1, S) = W[w_s, r_s]
-    prod = val.astype(f32) * m1
-    e_tb = (jax.lax.broadcasted_iota(jnp.int32, (TB, s), 0)
-            == tb_t).astype(f32)
-    a = e_tb * prod                                       # (TB, S)
-    e_lane = (jax.lax.broadcasted_iota(jnp.int32, (LANES, s), 0)
-              == lane_t).astype(f32)
-    return jax.lax.dot_general(                           # (TB, LANES)
-        a, e_lane, (((1,), (1,)), ((), ())),
-        preferred_element_type=f32, precision=jax.lax.Precision.HIGHEST)
-
-
-def _xell_kernel(*refs, n_slots, n_chunks, has_spill=False):
-    chunk_refs = refs[:n_chunks]
-    if has_spill:
-        bbt_ref, ll_ref, vals_ref, sidx, sval, o_ref = refs[n_chunks:]
-    else:
-        bbt_ref, ll_ref, vals_ref, o_ref = refs[n_chunks:]
-    eye = _eye_f32()
-    xwt = [_mxu_t(eye, r[:].astype(jnp.float32)) for r in chunk_refs]
-    acc = jnp.zeros((TB, LANES), jnp.float32)
-    for k in range(n_slots):
-        bb = bbt_ref[0, k].astype(jnp.int32)
-        g1t = jnp.zeros((LANES, TB), jnp.float32)
-        for c in range(n_chunks):
-            rel = bb - c * 128
-            inb = (rel >= 0) & (rel < 128)
-            g = jnp.take_along_axis(xwt[c], jnp.where(inb, rel, 0), axis=1)
-            g1t = jnp.where(inb, g, g1t)
-        g1 = _mxu_t(eye, g1t)
-        g = jnp.take_along_axis(g1, ll_ref[0, k].astype(jnp.int32), axis=1)
-        acc = acc + vals_ref[0, k].astype(jnp.float32) * g
-    if has_spill:
-        w_nat = jnp.concatenate([r[:] for r in chunk_refs], axis=0)
-        acc = acc + _spill_corr(w_nat, sidx, sval, n_chunks)
-    o_ref[:] = acc.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("n_slots", "n_chunks", "interpret"))
-def _xell_padded(vals, ll, bbt, xpad, spill5=None, *, n_slots, n_chunks,
-                 interpret=False):
-    nt = vals.shape[0]
-    chunk_specs = [
-        pl.BlockSpec((TB, LANES),
-                     functools.partial(lambda c, i: (i + c, 0), c),
-                     memory_space=pltpu.VMEM)
-        for c in range(n_chunks)
-    ]
-    args = [*([xpad] * n_chunks), bbt, ll, vals]
-    in_specs = chunk_specs + [
-        pl.BlockSpec((1, n_slots, LANES, TB), lambda i: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, n_slots, TB, LANES), lambda i: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, n_slots, TB, LANES), lambda i: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    if spill5 is not None:
-        s = spill5[0].shape[2]
-        in_specs += [pl.BlockSpec((1, 8, s), lambda i: (i, 0, 0),
-                                  memory_space=pltpu.VMEM)] * 2
-        args += list(spill5)
-    return pl.pallas_call(
-        functools.partial(_xell_kernel, n_slots=n_slots, n_chunks=n_chunks,
-                          has_spill=spill5 is not None),
-        grid=(nt,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((TB, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nt * TB, LANES), xpad.dtype),
-        interpret=interpret,
-    )(*args)
-
-
-def _k1x_kernel(*refs, n_slots, n_chunks, c_left, nt, has_spill=False):
-    """Merged-CG K1 for Xell operators: p' = z + β·p, q = A p' via the
-    crossed-gather SpMV, δ-partial = Σ p'·q — one pass over the window
-    chunks of z and p in the xpad framing (frame tile f is destination
-    tile f − c_left; the c_left leading and c − 1 − c_left trailing frame
-    tiles are zero halo, rewritten to zero every call so window reads
-    never need re-padding).  The COO spill rides in-kernel (SpillTables),
-    so q AND the δ partial are spill-exact with no XLA scatter."""
-    zrefs = refs[:n_chunks]
-    prefs = refs[n_chunks : 2 * n_chunks]
-    rest = refs[2 * n_chunks:]
-    if has_spill:
-        (beta_ref, bbt_ref, ll_ref, vals_ref, sidx, sval,
-         pout_ref, q_ref, delta_ref) = rest
-    else:
-        (beta_ref, bbt_ref, ll_ref, vals_ref,
-         pout_ref, q_ref, delta_ref) = rest
-    f = jnp.asarray(pl.program_id(0), jnp.int32)
-    interior = jnp.logical_and(f >= c_left, f < c_left + nt)
-    beta = beta_ref[0, 0]
-
-    @pl.when(jnp.logical_not(interior))
-    def _():
-        pout_ref[:] = jnp.zeros((TB, LANES), pout_ref.dtype)
-        q_ref[:] = jnp.zeros((TB, LANES), q_ref.dtype)
-        delta_ref[:] = jnp.zeros((8, LANES), jnp.float32)
-
-    @pl.when(interior)
-    def _():
-        pw = [zrefs[c][:] + beta * prefs[c][:] for c in range(n_chunks)]
-        center = pw[c_left]
-        eye = _eye_f32()
-        xwt = [_mxu_t(eye, c_.astype(jnp.float32)) for c_ in pw]
-        acc = jnp.zeros((TB, LANES), jnp.float32)
-        for k in range(n_slots):
-            bb = bbt_ref[0, k].astype(jnp.int32)
-            g1t = jnp.zeros((LANES, TB), jnp.float32)
-            for c in range(n_chunks):
-                rel = bb - c * 128
-                inb = (rel >= 0) & (rel < 128)
-                g = jnp.take_along_axis(xwt[c], jnp.where(inb, rel, 0), axis=1)
-                g1t = jnp.where(inb, g, g1t)
-            g1 = _mxu_t(eye, g1t)
-            g = jnp.take_along_axis(g1, ll_ref[0, k].astype(jnp.int32), axis=1)
-            acc = acc + vals_ref[0, k].astype(jnp.float32) * g
-        if has_spill:
-            w_nat = jnp.concatenate(pw, axis=0)
-            acc = acc + _spill_corr(w_nat, sidx, sval, n_chunks)
-        pout_ref[:] = center.astype(pout_ref.dtype)
-        q_ref[:] = acc.astype(q_ref.dtype)
-        delta_ref[:] = jnp.pad(
-            jnp.sum(acc * center.astype(jnp.float32), axis=0, keepdims=True),
-            ((0, 7), (0, 0)))
-
-
-class XellCgKernels:
-    """Merged-CG plan for Xell operators (VERDICT r04 item 4: fold the
-    crossed-gather SpMV into the 2-kernel merged iteration instead of the
-    ~11-pass unfused loop).  Subclasses nothing at import time to keep the
-    module layering acyclic; it quacks like kernels.fused.CgKernels (k1 /
-    k2* / frame / unframe / pack_values / apply), and the elementwise K2
-    kernels are REUSED from a delegate CgKernels-shaped plan whose frame
-    geometry is the Xell xpad framing: rows = (nt + c − 1)·128, body at
-    block-row offset c_left·128, zero pads both sides.
-
-    The COO spill tail rides IN-KERNEL via SpillTables (one-hot MXU
-    matmuls — q and the δ partial come out spill-exact with no XLA
-    scatter) when the plan was built from a concrete matrix
-    (`for_matrix`); without tables it falls back to an XLA scatter-add of
-    the spill products on p' outside the pallas_call.  Either way the
-    merged iteration is exact for any packing's spill fraction."""
-
-    def __init__(self, n: int, nt: int, n_slots: int, c_chunks: int,
-                 c_left: int, interpret: bool = False,
-                 spill_tables: SpillTables | None = None):
-        from ogl_tpu.kernels.fused import CgKernels
-
-        self.n = int(n)
-        self.nt = int(nt)
-        self.n_slots = int(n_slots)
-        self.c_chunks = int(c_chunks)
-        self.c_left = int(c_left)
-        self.spill_tables = spill_tables
-        self.interpret = bool(interpret)
-        self.dtype = jnp.float32
-        self.grid = self.nt + self.c_chunks - 1
-        self.frame_rows = self.grid * TB
-        self.rp = self.nt * TB
-        self.offsets = ()  # CgKernels-protocol attribute (no stencil)
-        # delegate carrying the K2/streaming kernels on this frame geometry
-        d = CgKernels.__new__(CgKernels)
-        d.n = self.n
-        d.offsets = ()
-        d.K = 0
-        d.tile = TB
-        d.rp = self.rp
-        d.frame_rows = self.frame_rows
-        d.grid = self.grid
-        d.interpret = self.interpret
-        d.dtype = self.dtype
-        self._d = d
-
-    @classmethod
-    def for_matrix(cls, mat: Xell, interpret: bool = False):
-        tables = None
-        if (int(mat.spill.vals.shape[0])
-                and not isinstance(mat.spill.rows, jax.core.Tracer)):
-            tables = xell_spill_tables(mat)
-        return cls(mat.shape[0], int(mat.vals.shape[0]), mat.n_slots,
-                   mat.c_chunks, mat.c_left, interpret, spill_tables=tables)
-
-    # ---- static-plan hashing (jit static argument) ----------------------
-    def _key(self):
-        return (self.n, self.nt, self.n_slots, self.c_chunks, self.c_left,
-                self.interpret, "xell",
-                None if self.spill_tables is None else
-                self.spill_tables.digest)
-
-    def __hash__(self):
-        return hash(self._key())
-
-    def __eq__(self, other):
-        return isinstance(other, XellCgKernels) and self._key() == other._key()
-
-    def workset_bytes(self) -> int:
-        return (self.nt * self.n_slots * TB * LANES * 7
-                + 6 * self.frame_rows * LANES * 4)
-
-    @property
-    def frame_offset(self) -> int:
-        """Flat frame index of local row 0 (the xpad framing's leading
-        zero chunks)."""
-        return self.c_left * TB * LANES
-
-    # ---- layout ---------------------------------------------------------
-    def pack_values(self, mat: Xell, dtype=None):
-        assert (int(mat.vals.shape[0]), mat.n_slots, mat.c_chunks,
-                mat.c_left) == (self.nt, self.n_slots, self.c_chunks,
-                                self.c_left)
-        return (mat.vals.astype(dtype or self.dtype), mat.ll, mat.bbT,
-                mat.spill.rows, mat.spill.cols,
-                mat.spill.vals.astype(dtype or self.dtype))
-
-    def frame(self, x):
-        x2 = jnp.pad(jnp.asarray(x, self.dtype),
-                     (0, self.rp * LANES - self.n))
-        left = self.c_left * TB * LANES
-        total = self.frame_rows * LANES
-        return jnp.pad(x2, (left, total - left - x2.shape[0])).reshape(
-            -1, LANES)
-
-    def unframe(self, xf):
-        off = self.c_left * TB * LANES
-        return xf.reshape(-1)[off : off + self.n]
-
-    # ---- K1 -------------------------------------------------------------
-    @functools.partial(jax.jit, static_argnums=0)
-    def k1(self, data3, zf, pf, beta, spill_ts=None):
-        """spill_ts: optional TRACED per-tile spill tables
-        ((nt, 8, S) i32 idx4, (nt, 8, S) f32 vals) — used by the
-        distributed path, where each shard has its own spill structure so
-        the tables cannot be plan statics (they ride shard_map instead);
-        takes precedence over the plan's own SpillTables."""
-        from jax.experimental.pallas import tpu as _pltpu
-
-        vals, ll, bbT, sr, sc, sv = data3
-        nt, k, c = self.nt, self.n_slots, self.c_chunks
-
-        def chunk_spec(j):
-            return pl.BlockSpec(
-                (TB, LANES),
-                functools.partial(
-                    lambda jj, f: (jnp.clip(f - self.c_left, 0, nt - 1) + jj,
-                                   0), j),
-                memory_space=pltpu.VMEM)
-
-        def op_spec(shape):
-            return pl.BlockSpec(
-                (1, *shape),
-                lambda f: (jnp.clip(f - self.c_left, 0, nt - 1), 0, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        tables = self.spill_tables
-        in_specs = ([chunk_spec(j) for j in range(c)]
-                    + [chunk_spec(j) for j in range(c)]
-                    + [pl.BlockSpec(memory_space=pltpu.SMEM),
-                       op_spec((k, LANES, TB)),
-                       op_spec((k, TB, LANES)),
-                       op_spec((k, TB, LANES))])
-        args = [*([zf] * c), *([pf] * c),
-                jnp.asarray(beta, self.dtype).reshape(1, 1), bbT, ll, vals]
-        if spill_ts is not None:
-            sidx_t, sval_t = spill_ts
-            tables = None
-        elif tables is not None:
-            sidx_t = jnp.asarray(tables.idx4())
-            sval_t = tables.padded_vals(sv)
-        else:
-            sidx_t = None
-        if sidx_t is not None:
-            s = int(sidx_t.shape[2])
-
-            def sp_spec(f):
-                return (jnp.clip(f - self.c_left, 0, nt - 1), 0, 0)
-
-            in_specs += [pl.BlockSpec((1, 8, s), sp_spec,
-                                      memory_space=pltpu.VMEM)] * 2
-            args += [sidx_t, sval_t.astype(jnp.float32)]
-        need = (2 * c + 4 + 2 * k) * TB * LANES * 4 * 2
-        pout, q, delta = pl.pallas_call(
-            functools.partial(_k1x_kernel, n_slots=k, n_chunks=c,
-                              c_left=self.c_left, nt=nt,
-                              has_spill=sidx_t is not None),
-            grid=(self.grid,),
-            in_specs=in_specs,
-            out_specs=(
-                pl.BlockSpec((TB, LANES), lambda f: (f, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((TB, LANES), lambda f: (f, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((8, LANES), lambda f: (f, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((self.frame_rows, LANES), self.dtype),
-                jax.ShapeDtypeStruct((self.frame_rows, LANES), self.dtype),
-                jax.ShapeDtypeStruct((self.grid * 8, LANES), jnp.float32),
-            ),
-            interpret=self.interpret,
-            compiler_params=_pltpu.CompilerParams(
-                vmem_limit_bytes=max(16 * 2**20,
-                                     min(need + 2 * 2**20, 120 * 2**20))),
-        )(*args)
-        delta = jnp.sum(delta)
-        if sidx_t is None and int(sv.shape[0]):
-            # no tables (plan built without a concrete matrix): XLA
-            # scatter-add fallback — exact, but ~15 µs per 1k entries
-            off = self.c_left * TB * LANES
-            pflat = pout.reshape(-1)
-            pc = jnp.take(pflat, sc.astype(jnp.int32) + off)
-            prod = sv.astype(jnp.float32) * pc.astype(jnp.float32)
-            ridx = sr.astype(jnp.int32) + off
-            qflat = q.reshape(-1).at[ridx].add(prod.astype(q.dtype))
-            q = qflat.reshape(q.shape)
-            delta = delta + jnp.sum(
-                prod * jnp.take(pflat, ridx).astype(jnp.float32))
-        return pout, q, delta
-
-    def apply(self, data3, xf):
-        _, q, _ = self.k1(data3, xf, xf, 0.0)
-        return q
-
-    # ---- K2 family: delegate to the shared streaming kernels ------------
-    def k2(self, alpha, xf, rf, pf, qf, invdf):
-        return self._d.k2(alpha, xf, rf, pf, qf, invdf)
-
-    def k2i(self, alpha, xf, rf, pf, qf):
-        return self._d.k2i(alpha, xf, rf, pf, qf)
-
-    def k2n(self, alpha, xf, rf, pf, qf):
-        return self._d.k2n(alpha, xf, rf, pf, qf)
-
-
-def xell_matvec(m: Xell, interpret: bool | None = None,
-                tables: SpillTables | None = None):
-    """x -> A@x via the crossed-gather kernel (TPU; XLA fallback elsewhere).
-    The spill COO tail (if any) rides inside the kernel as one-hot MXU
-    matmuls when its STRUCTURE is concrete at closure-build time
-    (SpillTables — saves the ~129 µs/apply XLA segment_sum at 1M); with
-    traced structure (e.g. inside shard_map over stacked shards, or a
-    matvec rebuilt from traced pytree leaves under jit) it falls back to
-    the XLA segment_sum unless the caller passes precomputed `tables`."""
-    if not interpret:
-        from ogl_tpu.kernels.spmv import _pallas_dtype_ok, pallas_usable
-
-        if not (pallas_usable() and _pallas_dtype_ok(m)):
-            return lambda x: spmv_xell(m, x)
-    n = m.shape[0]
-    has_spill = int(m.spill.vals.shape[0]) > 0
-    if (tables is None and has_spill
-            and not isinstance(m.spill.rows, jax.core.Tracer)):
-        tables = xell_spill_tables(m)
-
-    def mv(x):
-        x = jnp.asarray(x)
-        xpad = _pad_x(m, x)
-        spill5 = None
-        if tables is not None:
-            spill5 = (jnp.asarray(tables.idx4()),
-                      tables.padded_vals(m.spill.vals))
-        y = _xell_padded(m.vals, m.ll, m.bbT, xpad, spill5,
-                         n_slots=m.n_slots, n_chunks=m.c_chunks,
-                         interpret=bool(interpret))
-        y = y.reshape(-1)[:n].astype(x.dtype)
-        if has_spill and tables is None:
-            prod = m.spill.vals.astype(x.dtype) * jnp.take(
-                x, m.spill.cols, axis=0)
-            y = y + jax.ops.segment_sum(prod, m.spill.rows, num_segments=n)
-        return y
-
-    return mv

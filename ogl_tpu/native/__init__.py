@@ -4,13 +4,21 @@ Compiles src/ogl_host.cpp to a shared library on first use (g++ -O3,
 cached under native/build/) and exposes it through ctypes.  Every entry has
 a NumPy fallback so the framework works without a toolchain; `available()`
 reports which path is active.
+
+The library's file name carries a hash of the source, the compile flags
+and the host (machine type and host name): a copy of the tree carried to
+another host, or a changed source, finds no library under its key and
+builds one — a library built elsewhere is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -22,23 +30,44 @@ __all__ = ["lib", "available", "init_local_sparsity", "ilu0_csr", "ic0_csr",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "src", "ogl_host.cpp")
 _BUILD = os.path.join(_HERE, "build")
-_SO = os.path.join(_BUILD, "libogl_host.so")
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall", "-Wextra",
+          "-Werror")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _compile() -> bool:
+def build_key(src: str | None = None) -> str:
+    """Hash of the source bytes, the compile flags and the host."""
+    h = hashlib.sha256()
+    with open(src or _SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(f"{platform.machine()}|{platform.node()}".encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(src: str | None = None) -> str:
+    return os.path.join(_BUILD, f"libogl_host-{build_key(src)}.so")
+
+
+def _compile(src: str, so: str) -> bool:
+    """Build into a temporary file and rename it into place, so concurrent
+    processes never load a half-written library."""
     os.makedirs(_BUILD, exist_ok=True)
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-Wall", "-Wextra", "-Werror",
-           _SRC, "-o", _SO]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *_FLAGS, src, "-o", tmp], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, so)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def lib():
@@ -49,17 +78,13 @@ def lib():
             return _lib
         _tried = True
         try:
-            stale = (not os.path.exists(_SO)
-                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
+            so = library_path()
         except OSError:
-            # source file absent (installed/stripped tree): use a prebuilt
-            # .so if present, else fall back to the NumPy paths
-            stale = not os.path.exists(_SO)
-        if stale:
-            if not _compile():
-                return None
+            return None  # source absent: NumPy paths
+        if not os.path.exists(so) and not _compile(_SRC, so):
+            return None
         try:
-            L = ctypes.CDLL(_SO)
+            L = ctypes.CDLL(so)
         except OSError:
             return None
         i64, i32, f64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double

@@ -2,11 +2,11 @@
 //
 // The reference implements its host conversion layer in C++
 // (HostMatrix/HostMatrixFreeFunctions.C) and delegates factorisations to
-// Ginkgo's native kernels; this library is the equivalent for the TPU
+// Ginkgo's native kernels; this library is the equivalent for this
 // framework's host side: one-time setup paths that are latency-sensitive
 // on production meshes (many millions of cells) — LDU->row-major sparsity
 // construction, incomplete factorisations, and AMG aggregation.  The
-// device hot path stays JAX/Pallas; Python falls back to NumPy
+// device hot path stays JAX; Python falls back to NumPy
 // implementations when this library is unavailable.
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 in the image).

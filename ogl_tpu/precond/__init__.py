@@ -1,4 +1,4 @@
-"""Preconditioners — TPU-native equivalents of the reference's factory
+"""Preconditioners — JAX equivalents of the reference's factory
 (Preconditioner/Preconditioner.H:83-351).
 
 Name dispatch matches the reference: none, BJ, ILU, ILUT, IRILU, IC, ICT,
@@ -6,7 +6,7 @@ ISAI, GISAI, Multigrid.  Each build_* returns an apply closure `r -> M⁻¹ r`
 that is pure JAX (jit/while_loop-safe); all data-dependent setup happens
 host-side once (sparsity is constant across solves).
 
-TPU mapping of the Ginkgo machinery (SURVEY.md §2b):
+Mapping of the Ginkgo machinery (SURVEY.md §2b):
   block Jacobi      -> batched dense inverse + batched matmul apply
   ISAI              -> batched small dense solves at setup, ELL SpMV apply
   ILU/IC triangular -> Jacobi-sweep (truncated-Neumann) approximate
@@ -35,7 +35,7 @@ VALID = ("none", "BJ", "ILU", "ILUT", "IRILU", "IC", "ICT", "ISAI", "GISAI", "Mu
 class PrecondOp:
     """A preconditioner as (pure apply function, state pytree).
 
-    The split matters on TPU: `state` (inverted blocks, factor values,
+    The split matters: `state` (inverted blocks, factor values,
     AMG level operators) is passed as a TRACED argument to the compiled
     solver, so regenerating the preconditioner for new matrix coefficients
     (the reference regenerates every solve unless `caching` is set,

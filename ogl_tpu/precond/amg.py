@@ -4,37 +4,30 @@ amgx_pgm coarsening, IR+scalar-Jacobi pre/post smoother with relaxation
 0.9 and 2 sweeps, CG coarse solver with a fixed iteration count, v/w/f
 cycle, one multigrid sweep per preconditioner application).
 
-TPU-first structure: the level hierarchy is data-dependent, so it is built
-ONCE on the host (greedy pairwise aggregation + Galerkin products in
-SciPy) and baked into the compiled program as a static unrolled cycle —
-each level's operator picks the fastest representable format (Dia —
-coarsening of stencil matrices preserves diagonal structure — then Gdia,
-then Ell), and with the default "natural" consecutive-run aggregation the
-transfer operators are pure reshapes (piecewise-constant P; the
-strength-based "pgm" mode matches the reference's amgx_pgm semantics but
-pays XLA gather/scatter transfers).  All shapes static, the whole cycle
-jit-safe (SURVEY.md §7 hard part "AMG with static shapes").
+Structure: the level hierarchy is data-dependent, so it is built ONCE on
+the host (greedy pairwise aggregation + Galerkin products in SciPy) and
+baked into the compiled program as a static unrolled cycle — each level's
+operator picks the densest representable format (Dia — coarsening of
+stencil matrices preserves diagonal structure — then Gdia, then Ell), and
+with the default "natural" consecutive-run aggregation the transfer
+operators are pure reshapes (piecewise-constant P; the strength-based
+"pgm" mode matches the reference's amgx_pgm semantics but pays XLA
+gather/scatter transfers).  All shapes static, the whole cycle jit-safe
+(SURVEY.md §7 hard part "AMG with static shapes").
 
-The cycle cost on TPU is launch-latency-bound, not bandwidth-bound, so the
-cycle is engineered for op count:
+Small coarse levels make the cycle cost bound by per-op launch latency
+rather than bandwidth, so the cycle is engineered for op count:
   * shallow hierarchy — coarsening rate 8 per level (config coarseningRate);
-  * large Dia levels run FUSED framed smoothers: vectors stay in the
-    halo-framed (Rp+2T, 128) layout of kernels/fused.py and every Jacobi
-    sweep / residual is one Pallas pass (ksweep/kresid);
   * the first pre-smooth sweep exploits the zero initial guess (no A·0);
-  * the coarsest level is solved DIRECTLY by one MXU matvec against a
+  * the coarsest level is solved DIRECTLY by one matvec against a
     precomputed dense inverse (config coarseSolver=direct) instead of the
     reference's fixed-iteration CG (~20 latency-bound ops).
-Measured (v5e, 1M-DOF FV Poisson, f32): V-cycle ≈ 0.29 ms in-solve; GKOCG+
-Multigrid 31 iters / ~14 ms device vs unpreconditioned merged-CG 143 iters
-/ ~17 ms — the preconditioner wins wall-clock at 1M DOF and scales better.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ogl_tpu.kernels.spmv import pallas_usable as _pallas_usable
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,29 +90,21 @@ class _Level:
     n: int = dataclasses.field(metadata=dict(static=True))
     nc: int = dataclasses.field(metadata=dict(static=True))
     # natural (consecutive-run) aggregation: transfers are reshapes, no
-    # gather/scatter — the TPU-fast default (XLA scatter/gather for the
-    # strength-based transfers costs ~ms per level at scale)
+    # gather/scatter (the strength-based transfers need both)
     natural: bool = dataclasses.field(default=False, metadata=dict(static=True))
     # grid (geometric 2x-per-axis) aggregation: fine dims + coarse dims
     # (nz, ny, nx, nzc, nyc, nxc); transfers are pad+reshape+reduce
     grid: tuple | None = dataclasses.field(default=None,
                                            metadata=dict(static=True))
     # aggregate size for natural aggregation (coarsening rate per level);
-    # larger widths mean fewer levels — on TPU the cycle cost is dominated
-    # by per-op launch latency across the small levels, not fine-level
-    # bandwidth, so a shallower hierarchy wins wall-clock even at a few
-    # extra outer Krylov iterations
+    # larger widths mean fewer levels — the cycle cost across the small
+    # levels is per-op launch latency, not fine-level bandwidth, so a
+    # shallower hierarchy can win wall-clock at a few extra outer Krylov
+    # iterations
     width: int = dataclasses.field(default=2, metadata=dict(static=True))
     # dense inverse of the coarsest operator (nc=0 levels only): coarse
-    # solve = one MXU matvec instead of a latency-bound CG loop
+    # solve = one matvec instead of a latency-bound CG loop
     coarse_inv: object | None = None
-    # fused-smoother plan for large Dia levels on TPU: the cycle keeps this
-    # level's vectors in the halo-framed (Rp+2T, 128) layout and each Jacobi
-    # sweep / residual is ONE Pallas pass (kernels/fused.py ksweep/kresid) —
-    # unfused, every A-apply pays pad/reshape/slice passes over the vector
-    plan: object = dataclasses.field(default=None, metadata=dict(static=True))
-    data3: object | None = None  # packed (nd, Rp, 128) coefficient blocks
-    invdf: object | None = None  # framed inverse diagonal
 
 
 def natural_aggregate(n: int, width: int = 2) -> np.ndarray:
@@ -211,7 +196,7 @@ def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
         natural = grid_dims is None
 
     # with a direct coarse solve, coarsening below the dense-solve size only
-    # adds latency-bound levels: stop as soon as one MXU matvec can finish
+    # adds latency-bound levels: stop as soon as one dense matvec can finish
     # the job (min_coarse_rows stays a lower bound, reference semantics).
     # n0//16 keeps small problems coarsening a couple of levels so the
     # hierarchy is still exercised (and the dense block stays tiny).
@@ -240,7 +225,6 @@ def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
         d = np.where(np.abs(d) > 1e-300, d, 1.0)
         mat = _ell_of(a, dtype)
         inv_diag = jnp.asarray((1.0 / d).astype(dtype))
-        plan, data3, invdf = _fused_plan(mat, inv_diag)
         levels.append(
             _Level(
                 mat=mat,
@@ -252,9 +236,6 @@ def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
                 natural=natural,
                 grid=gtuple,
                 width=width,
-                plan=plan,
-                data3=data3,
-                invdf=invdf,
             )
         )
         if grid_dims is not None:
@@ -267,7 +248,7 @@ def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
         a = sp.csr_matrix((ac.data, (agg[ac.row], agg[ac.col])),
                           shape=(nc, nc))
         a.sum_duplicates()
-    # coarsest level: dense inverse when small (one MXU matvec per cycle
+    # coarsest level: dense inverse when small (one dense matvec per cycle
     # instead of a latency-bound fixed-iteration CG; exact, so it also
     # strengthens the coarse-grid correction)
     d = a.diagonal()
@@ -296,32 +277,6 @@ def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
         )
     )
     return levels
-
-
-def _fused_plan(mat, inv_diag):
-    """Fused-smoother plan for a level (None when the fused path does not
-    apply: non-TPU, non-Dia, small n — small Pallas tiles fault on hw —
-    or non-f32 data)."""
-    from ogl_tpu.core.formats import Dia
-
-    if (
-        not _pallas_usable()
-        or not isinstance(mat, Dia)
-        or not mat.offsets
-        or mat.shape[0] < (1 << 15)
-        or mat.data.dtype != jnp.float32
-    ):
-        return None, None, None
-    from ogl_tpu.kernels.fused import CgKernels
-
-    try:
-        plan = CgKernels(mat.shape[0], mat.offsets)
-    except ValueError:
-        return None, None, None
-    # bfloat16 coefficient blocks: the smoother computes in f32 in-kernel
-    # but halves the A-read bytes — for a preconditioner operator the
-    # rounding is immaterial (verified: iteration count unchanged at 1M)
-    return plan, plan.pack_values(mat, dtype=jnp.bfloat16), plan.frame(inv_diag)
 
 
 def grid_restrict(g, r):
@@ -400,20 +355,9 @@ def _ell_of(a_csr, dtype):
 
 
 def _apply_mat(level: "_Level", x):
-    """Level SpMV: Pallas kernels on TPU for large levels, XLA elsewhere
-    (small Pallas tiles fault on hardware; tiny levels don't need them —
-    and the XLA Dia path is gather-free, so it stays fast at any size)."""
-    from ogl_tpu.core.formats import Dia
-    from ogl_tpu.kernels.gdia import Gdia, gdia_matvec
+    """Level SpMV (format-dispatched XLA path)."""
     from ogl_tpu.kernels.spmv import spmv as _spmv
 
-    big = level.n >= (1 << 15) and _pallas_usable()
-    if isinstance(level.mat, Dia) and big and level.mat.offsets:
-        from ogl_tpu.kernels.pallas_spmv import dia_matvec
-
-        return dia_matvec(level.mat)(x)
-    if isinstance(level.mat, Gdia) and big:
-        return gdia_matvec(level.mat)(x)
     return _spmv(level.mat, x)
 
 
@@ -431,12 +375,14 @@ def _smooth(level: _Level, x, b, relax, iters: int, x_is_zero: bool = False):
 
 
 def _coarse_solve(level: _Level, b, iters: int):
-    """Coarsest-level solve.  Preferred: one dense-inverse matvec on the
-    MXU (exact; a single op vs ~20 latency-bound ops for a CG loop).
-    Fallback: fixed-iteration CG (reference coarsest_gen: CG with Iteration
+    """Coarsest-level solve.  Preferred: one dense-inverse matvec (exact;
+    a single op vs ~20 latency-bound ops for a CG loop), at HIGHEST
+    precision so an f32 product is not rounded through TF32.  Fallback:
+    fixed-iteration CG (reference coarsest_gen: CG with Iteration
     criterion only)."""
     if level.coarse_inv is not None:
-        return (level.coarse_inv.astype(b.dtype) @ b).astype(b.dtype)
+        return jnp.matmul(level.coarse_inv.astype(b.dtype), b,
+                          precision=jax.lax.Precision.HIGHEST).astype(b.dtype)
     return _coarse_cg(level, b, iters)
 
 
@@ -486,33 +432,10 @@ def amg(
                              width=width, coarse_solver=coarse_solver)
     n_levels = len(levels)
 
-    def run_level_framed(lvls, li: int, bf, w_mode: bool):
-        """Framed-level cycle: vectors stay in the level's (Rp+2T, 128)
-        halo frame; each sweep/residual is one fused Pallas pass."""
-        level = lvls[li]
-        plan = level.plan
-        recurse = 2 if (w_mode and li < n_levels - 2) else 1
-        invdf = level.invdf
-        xf = relax * invdf * bf  # first zero-guess sweep: no A apply
-        for _ in range(smooth_iters - 1):
-            xf = plan.ksweep(level.data3, xf, bf, invdf, relax)
-        for cyc in range(recurse):
-            rf = plan.kresid(level.data3, xf, bf)
-            rc = _restrict(level, plan.unframe(rf))
-            ec = run_level(lvls, li + 1, rc,
-                           w_mode or (cycle == "f" and cyc == 0))
-            xf = xf + plan.frame(_prolong(level, ec))
-            for _ in range(smooth_iters):
-                xf = plan.ksweep(level.data3, xf, bf, invdf, relax)
-        return xf
-
     def run_level(lvls, li: int, b, w_mode: bool):
         level = lvls[li]
         if li == n_levels - 1:
             return _coarse_solve(level, b, coarse_solver_iters)
-        if level.plan is not None:
-            return level.plan.unframe(
-                run_level_framed(lvls, li, level.plan.frame(b), w_mode))
         recurse = 2 if (w_mode and li < n_levels - 2) else 1
         x = _smooth(level, jnp.zeros_like(b), b, relax, smooth_iters,
                     x_is_zero=True)
@@ -529,17 +452,4 @@ def amg(
         # Iteration max_iters 1 + zeroGuess, reference :314-345)
         return run_level(lvls, 0, r, cycle == "w").astype(r.dtype)
 
-    op = PrecondOp(apply, tuple(levels))
-    # framed fine-level entry for the merged-kernel PCG (solve/cg_fused.py
-    # precond_framed): the WHOLE preconditioned solve then stays in the
-    # halo-framed layout — no per-iteration frame/unframe traffic.
-    if n_levels > 1 and levels[0].plan is not None:
-        def apply_framed(lvls, rf):
-            return run_level_framed(lvls, 0, rf, cycle == "w").astype(rf.dtype)
-
-        op.framed_fn = apply_framed
-        op.fine_plan = levels[0].plan
-    else:
-        op.framed_fn = None
-        op.fine_plan = None
-    return op
+    return PrecondOp(apply, tuple(levels))

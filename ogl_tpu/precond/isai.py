@@ -6,8 +6,8 @@ sparsityPower) and chosen so (M A)|_{J_i} = e_i|_{J_i}:
 
     M[i, J_i] · A[J_i, J_i] = e_i[J_i]   ⇒   A[J_i,J_i]ᵀ m = e_i
 
-TPU-native shape: all n small systems are ONE padded batched dense solve
-(n, K, K) at setup (MXU), and the apply is a fast-format SpMV
+Shape: all n small systems are ONE padded batched dense solve (n, K, K)
+at setup, and the apply is a format-dispatched SpMV
 (Dia/Gdia/Ell via kernels.spmv.pack_fast) — no triangular solves anywhere.  The spd variant symmetrises the apply,
 r ↦ ½(M + Mᵀ)r, so CG sees a symmetric operator (Ginkgo's spd isai
 guarantees SPD through its factored form; the symmetrised general ISAI is
@@ -137,20 +137,20 @@ def isai(coo: Coo, sparsity_power: int = 1, spd: bool = False):
     n = coo.shape[0]
     mr, mc, mv = isai_triples(coo, sparsity_power=sparsity_power)
 
-    from ogl_tpu.kernels.spmv import apply_fast, pack_fast
+    from ogl_tpu.kernels.spmv import pack_fast, spmv
     from ogl_tpu.precond import PrecondOp
 
-    # pack M into the fastest TPU format (its apply is a hot-loop SpMV)
+    # pack M into the densest format (its apply is a hot-loop SpMV)
     M = pack_fast(mr, mc, mv, n)
 
     if not spd:
-        return PrecondOp(lambda s, r: apply_fast(s, r).astype(r.dtype), M)
+        return PrecondOp(lambda s, r: spmv(s, r).astype(r.dtype), M)
 
     # transpose of M for the symmetrised apply
     Mt = pack_fast(mc, mr, mv, n)
 
     def apply_spd(s, r):
         m, mt = s
-        return (0.5 * (apply_fast(m, r) + apply_fast(mt, r))).astype(r.dtype)
+        return (0.5 * (spmv(m, r) + spmv(mt, r))).astype(r.dtype)
 
     return PrecondOp(apply_spd, (M, Mt))

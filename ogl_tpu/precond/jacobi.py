@@ -1,9 +1,9 @@
 """Block-Jacobi preconditioner ("BJ", reference Preconditioner.H:91-105,
 Ginkgo gko::preconditioner::Jacobi).
 
-TPU-native shape: the diagonal blocks are one (n_blocks, bs, bs) batched
-dense array — inverted once with a batched solve at setup (MXU work), and
-applied as one batched matmul per iteration.  Blocking is uniform
+Shape: the diagonal blocks are one (n_blocks, bs, bs) batched dense array
+— inverted once with a batched solve at setup, and applied as one batched
+matmul (at HIGHEST precision) per iteration.  Blocking is uniform
 contiguous rows of `max_block_size` (Ginkgo agglomerates supervariables up
 to max_block_size; FV cell orderings make contiguous blocking the natural
 equivalent).  max_block_size=1 degenerates to scalar Jacobi.
@@ -55,7 +55,8 @@ def block_jacobi(coo: Coo, block_size: int = 1):
 
     def apply(s, r):
         rp = jnp.pad(r, (0, nb * bs - n)).reshape(nb, bs)
-        y = jnp.einsum("bij,bj->bi", s.astype(r.dtype), rp)
+        y = jnp.einsum("bij,bj->bi", s.astype(r.dtype), rp,
+                       precision=jax.lax.Precision.HIGHEST)
         return y.reshape(-1)[:n]
 
     return PrecondOp(apply, inv)

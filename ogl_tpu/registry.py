@@ -1,11 +1,11 @@
-"""Device-persistence registry — the TPU analogue of DevicePersistent.
+"""Device-persistence registry — the analogue of DevicePersistent.
 
 The reference caches every expensive device object (sparsity arrays,
 distributed matrix, vectors, preconditioners, executor handles) in
 OpenFOAM's objectRegistry keyed by field name, so steady-state solves only
 re-upload coefficients (reference DevicePersistent/Base/Base.H:75-115;
-caching story in SURVEY.md §3.2).  On TPU the analogue is a process-level
-cache of jax.Arrays (HBM-resident between solves) plus compiled-function
+caching story in SURVEY.md §3.2).  Here the analogue is a process-level
+cache of jax.Arrays (device-resident between solves) plus compiled-function
 reuse (jit caches on static sparsity), and a small property store carrying
 cross-solve scalars (prevSolveIters, residual-eval cost ratio,
 preconditioner TTL — reference common/common.C:75-146).

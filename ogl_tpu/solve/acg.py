@@ -5,10 +5,9 @@ solved by gko::solver::Cg on the nc-column multivector).
 
 The reference ships GKOACG excluded from the build and its coupled
 HostMatrix constructor aborts (HostMatrix.C:153-156, CMakeLists.txt:174);
-this is the working TPU-native realisation of that surface: per-column CG
-recurrences vectorised over the component axis (one SpMV pass per
-iteration applies to the whole (n, nc) block — component count rides the
-VPU lanes for free), per-component OpenFOAM stopping criterion, converged
+this is a working realisation of that surface: per-column CG recurrences
+vectorised over the component axis, per-component OpenFOAM stopping
+criterion, converged
 components frozen exactly like Ginkgo's stopped-column semantics.
 """
 
@@ -60,9 +59,7 @@ def cg_coupled(mv, B, X0, cfg, precond=None) -> CoupledResult:
     n, nc = B.shape
 
     def mvm(X):  # X: (nc, n)
-        # static unroll over the (few) components: vmapping the Pallas
-        # matvec is not lowerable (manual-DMA HBM block specs can't take a
-        # batch dim), and nc separate kernel launches pipeline fine
+        # static unroll over the (few) components: nc separate SpMVs
         return jnp.stack([mv(X[c]) for c in range(nc)], axis=0)
 
     pc = (lambda R: R) if precond is None else (

@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients as a `lax.while_loop`.
 
-TPU-native replacement for `gko::solver::Cg` as driven by GKOCG
+Replacement for `gko::solver::Cg` as driven by GKOCG
 (reference Solver/CG/GKOCG.H:45-61): classical PCG recurrences with the
 OpenFOAM stopping criterion evaluated on-device before each update, so the
 whole solve is a single compiled program with no host syncs.

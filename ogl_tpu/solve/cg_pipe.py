@@ -27,7 +27,7 @@ one more carried vector (s) and one axpy.
 In exact arithmetic the iterates equal classical PCG's; in floating point
 the alpha recurrence drifts slightly, so iteration counts match classical
 CG to within rounding order (pinned by tests/test_solvers.py).  This is a
-TPU-first scaling feature beyond reference parity — the reference has no
+scaling feature beyond reference parity — the reference has no
 single-reduction variant.  Enabled with `pipelinedCG true;` in the GKOCG
 fvSolution dict (single-device and distributed paths).
 

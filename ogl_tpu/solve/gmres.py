@@ -1,7 +1,7 @@
 """Restarted GMRES as nested `lax.while_loop`s.
 
 Replaces `gko::solver::Gmres` as driven by GKOGMRES
-(reference Solver/GMRES/GKOGMRES.H).  TPU-first choices:
+(reference Solver/GMRES/GKOGMRES.H).  Design choices:
 
   * The Krylov basis V is a dense (m+1, n) array, so every Arnoldi
     orthogonalisation streams blocked (B,n)×(n,) matmul pairs — vector
@@ -86,8 +86,8 @@ def gmres(ops: Ops, b, x0, cfg: StoppingConfig, krylov_dim: int = 100,
     accumulates in full precision across cycles, so the bf16 recombination
     error of ONE cycle's correction shrinks with the correction itself
     (defect-correction argument), and the materialised OpenFOAM criterion
-    always evaluates the TRUE residual — no false convergence.  TPU-native
-    lever (VERDICT r03 item 6b); no reference analogue."""
+    always evaluates the TRUE residual — no false convergence.  No
+    reference analogue."""
     dtype = b.dtype
     bdtype = dtype if basis_dtype is None else jnp.dtype(basis_dtype)
     n = b.shape[0]
@@ -117,7 +117,8 @@ def gmres(ops: Ops, b, x0, cfg: StoppingConfig, krylov_dim: int = 100,
         def body(k, acc):
             vb = jax.lax.dynamic_slice_in_dim(V, k * B, B, axis=0)
             yb = jax.lax.dynamic_slice_in_dim(y, k * B, B, axis=0)
-            return acc + jnp.einsum("b,brl->rl", yb, vb.astype(dtype))
+            return acc + jnp.einsum("b,brl->rl", yb, vb.astype(dtype),
+                                    precision=jax.lax.Precision.HIGHEST)
 
         yV = jax.lax.fori_loop(0, nblk, body, jnp.zeros((R, 128), dtype))
         return x_restart + ops.precond(yV.reshape(-1)[:n])
@@ -228,8 +229,7 @@ def gmres(ops: Ops, b, x0, cfg: StoppingConfig, krylov_dim: int = 100,
                 # slower than 30%/8 steps far above the floor; without
                 # this gate the window heuristic restarted those cycles
                 # over and over, discarding the Krylov subspace each time
-                # (measured 1516 vs 96 iterations at 1000:1 anisotropy —
-                # the VERDICT r04 weak-6 pathology, now pinned by
+                # (1516 vs 96 iterations at 1000:1 anisotropy — pinned by
                 # tests/test_gmres_bf16_basis.py's ill-conditioned case)
                 near_floor = est2 < (32.0 * float(jnp.finfo(bdtype).eps)
                                      * c.beta0)
@@ -276,8 +276,12 @@ def gmres(ops: Ops, b, x0, cfg: StoppingConfig, krylov_dim: int = 100,
                     vb = jax.lax.dynamic_slice_in_dim(
                         V, k * B, B, axis=0).astype(dtype)
                     mb = jax.lax.dynamic_slice_in_dim(mask, k * B, B, axis=0)
-                    hb = ops.allreduce(jnp.einsum("brl,rl->b", vb, w)) * mb
-                    return (w - jnp.einsum("b,brl->rl", hb, vb),
+                    hb = ops.allreduce(jnp.einsum(
+                        "brl,rl->b", vb, w,
+                        precision=jax.lax.Precision.HIGHEST)) * mb
+                    return (w - jnp.einsum(
+                        "b,brl->rl", hb, vb,
+                        precision=jax.lax.Precision.HIGHEST),
                             jax.lax.dynamic_update_slice_in_dim(
                                 h, hb, k * B, axis=0))
                 return jax.lax.fori_loop(

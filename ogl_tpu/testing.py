@@ -111,14 +111,15 @@ def poisson_dense(dims, dirichlet_boundary: bool = True) -> np.ndarray:
     return to_dense_ldu(poisson_ldu(dims, dirichlet_boundary))
 
 
-def channel_ldu(dims, aniso: float = 4.0) -> ldu.LduMatrix:
+def channel_ldu(dims, aniso: float = 4.0, periodic: str = "x") -> ldu.LduMatrix:
     """Periodic-channel pressure system (the reference's second integration
     case family: periodicPlaneChannel/channel395, a cyclic-BC LES channel,
     test_matrix.json + integration.yaml): FV Poisson on a structured grid,
-    PERIODIC in x via a cyclic LocalInterface pairing the first and last
-    x-planes, wall-normal anisotropy `aniso` on the y-direction couplings
-    (stretched-grid transmissibility).  Diagonal gets a small fixed-value
-    pin so the periodic system stays SPD."""
+    PERIODIC along each axis in `periodic` ("x" streamwise; "xz" adds the
+    spanwise cyclic pair of channel395) via cyclic LocalInterfaces pairing
+    the first and last planes, wall-normal anisotropy `aniso` on the
+    y-direction couplings (stretched-grid transmissibility).  Diagonal gets
+    a small fixed-value pin so the periodic system stays SPD."""
     nx, ny, nz = grid_shape(dims)
     base = poisson_ldu(dims, dirichlet_boundary=False)
     n = base.n
@@ -135,16 +136,20 @@ def channel_ldu(dims, aniso: float = 4.0) -> ldu.LduMatrix:
         np.add.at(diag, lo[y_face], extra)
         np.add.at(diag, up[y_face], extra)
 
-    ifaces = ()
-    if nx > 2:
-        left = cid[:, :, 0].ravel()
-        right = cid[:, :, -1].ravel()
-        rows = np.concatenate([left, right])
-        cols = np.concatenate([right, left])
-        coeffs = np.ones(rows.shape[0])
-        ifaces = (ldu.LocalInterface(rows=rows, cols=cols, coeffs=coeffs),)
-        np.add.at(diag, left, 1.0)
-        np.add.at(diag, right, 1.0)
+    ifaces = []
+    for axis in periodic:
+        ax, m = {"x": (2, nx), "z": (0, nz)}[axis]
+        if m <= 2:
+            continue
+        first = np.take(cid, 0, axis=ax).ravel()
+        last = np.take(cid, m - 1, axis=ax).ravel()
+        rows = np.concatenate([first, last])
+        cols = np.concatenate([last, first])
+        ifaces.append(ldu.LocalInterface(rows=rows, cols=cols,
+                                         coeffs=np.ones(rows.shape[0])))
+        np.add.at(diag, first, 1.0)
+        np.add.at(diag, last, 1.0)
+    ifaces = tuple(ifaces)
     # pin the nullspace (pure-Neumann + periodic would be singular)
     diag[0] += 1.0
     return ldu.LduMatrix(

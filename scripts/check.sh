@@ -14,7 +14,7 @@ echo "== import check =="
 JAX_PLATFORMS=cpu python -c "
 import jax; jax.config.update('jax_platforms', 'cpu')
 import ogl_tpu, ogl_tpu.foam, ogl_tpu.dist, ogl_tpu.precond, ogl_tpu.kernels
-import ogl_tpu.kernels.pallas_spmv, ogl_tpu.kernels.fused, ogl_tpu.kernels.gdia
+import ogl_tpu.kernels.gdia, ogl_tpu.kernels.xell, ogl_tpu.kernels.roofline
 print('imports ok; native lib available:', __import__('ogl_tpu.native', fromlist=['x']).available())
 "
 

@@ -2,8 +2,8 @@
 """Multi-field cold-start: wall-clock to the FIRST completed time step of a
 4-field transient case (p + U x 3) from a fresh process — the number an
 OpenFOAM user actually feels when they launch a case on a new machine
-(VERDICT r03 item 9; reference analogue: per-field persistent init,
-lduLduBase.H:141-160, which pays no compile step but re-converts per field).
+(reference analogue: per-field persistent init, lduLduBase.H:141-160,
+which pays no compile step but re-converts per field).
 
 One "time step" = 3 momentum component solves (GKOBiCGStab+BJ on a
 convection-diffusion operator, icoFoam-style) followed by a pressure solve
@@ -11,9 +11,12 @@ convection-diffusion operator, icoFoam-style) followed by a pressure solve
 STRUCTURE (and therefore one compiled program + one format conversion —
 only values differ), exactly like Ux/Uy/Uz in a segregated solver.
 
-Run by bench.py in a subprocess so the cache regime is controlled:
-  OGL_JAX_CACHE_DIR=<fresh tmp>  -> cold machine (XLA compiles everything)
-  OGL_JAX_CACHE_DIR=<same  tmp>  -> warm machine (process restart, cache hit)
+Run it on its own (one process per card), choosing the cache regime:
+  PYTHONPATH=. JAX_COMPILATION_CACHE_DIR=<fresh dir> python scripts/cold_start.py
+      -> cold machine (XLA compiles everything)
+  the same command again with the same directory
+      -> warm machine (process restart, cache hit)
+COLD_DIMS=NXxNYxNZ sets the mesh (default 128x128x64).
 
 Prints one JSON line on stdout:
   {"import_s": .., "setup_s": .., "fields_s": {"Ux": .., "Uy": .., "Uz": ..,

@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Per-program XLA compile-time breakdown for a cold first solve
-(VERDICT r03 item 8: attack cold-compile time WITH DATA).
+"""Per-program XLA compile-time breakdown for a cold first solve.
 
 Runs one foam solve configuration in THIS process with a throwaway
 compilation cache (so every program compiles) and `jax_log_compiles`
@@ -12,7 +11,7 @@ Usage:
       [--dims 128x128x64] [--solver GKOGMRES] [--precond GISAI]
 
 The reference has no compile step (Ginkgo kernels are precompiled); this
-cost is TPU-specific debt, so the fix is measured here, not assumed:
+cost is XLA-specific debt, so the fix is measured here, not assumed:
 variant reduction only where the breakdown shows a variant that matters.
 """
 

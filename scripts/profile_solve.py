@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Capture a jax.profiler trace of a foam solve — the TPU equivalent of
+"""Capture a jax.profiler trace of a foam solve — the equivalent of
 the reference's NVTX ranges (common.H:54-65, nvtxRangePushA under CUDA).
 
 Writes a TensorBoard-compatible trace directory; each solve phase is
 wrapped in a jax.profiler.TraceAnnotation (common.TraceAnnotation), so the
 timeline shows setup / coefficient-update / solve spans alongside the
-XLA/Pallas kernel rows.
+XLA kernel rows.
 
 Usage:
   python scripts/profile_solve.py [--dims 128x128x64] [--out /tmp/ogl_trace]

@@ -5,7 +5,7 @@ initialises jax.distributed, stages ITS shards of a decomposed Poisson
 system, runs the shard_map'd distributed CG, and checks its addressable
 slices of the solution.  This exercises the actual multi-host code path
 (jax.distributed init + make_array_from_single_device_arrays staging +
-cross-process collectives) that a TPU pod-slice run uses
+cross-process collectives) that a multi-host run uses
 (reference ExecutorHandler.H:115-179 / mpirun equivalent).
 """
 

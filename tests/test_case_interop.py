@@ -1,4 +1,4 @@
-"""Exporter→consumer interop loop (VERDICT r2 item 5): export a decomposed
+"""Exporter→consumer interop loop: export a decomposed
 case in the reference's processor?/<time>/ format, validate the artifacts in
 the style of the reference's test/data_validation.py:53-121 (existence,
 uniqueness across steps, diag signs), ingest them back into per-rank
@@ -185,7 +185,7 @@ def test_single_rank_export_replay(tmp_path):
 
 
 def test_graph_decomposed_export_records_cell_addressing(tmp_path):
-    """Graph-decomposed exports write cellProcAddressing (ADVICE r3): the
+    """Graph-decomposed exports write cellProcAddressing: the
     exported case is in the renumbered order, and the addressing maps a
     replayed solution back to the exporter's original field ordering."""
     m = problems.poisson_ldu((16, 12))
@@ -224,7 +224,7 @@ def test_graph_decomposed_export_records_cell_addressing(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# sidecar-free ingest (VERDICT r03 item 7): a TRUE reference export carries
+# sidecar-free ingest: a TRUE reference export carries
 # no _comm.json — the halo mapping must come from the artifacts alone
 # ---------------------------------------------------------------------------
 

@@ -42,9 +42,9 @@ def test_registry_properties_persist():
 def test_roofline_fraction():
     from ogl_tpu.kernels.roofline import Roofline
 
-    r = Roofline(seconds=1e-4, bytes=81_900_000, flops=0, peak_gbps=819.0)
-    assert abs(r.gbps - 819.0) < 1e-6
-    assert abs(r.fraction_of_peak - 1.0) < 1e-9
+    r = Roofline(seconds=1e-4, bytes=335_000_000, flops=0)
+    assert abs(r.gbps - 3350.0) < 1e-6
+    assert abs(r.fraction_of(3350.0) - 1.0) < 1e-9
 
 
 def test_mtx_symmetric_read(tmp_path):

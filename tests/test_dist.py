@@ -207,7 +207,7 @@ def test_pack_local_stack_unsorted_triples():
 
 def test_dist_gdia_local_stack():
     """Unstructured shards (bandwidth too wide for DIA after partitioning)
-    pack into a GdiaStack — the TPU lane-gather fast path — and solve to
+    pack into a GdiaStack — the lane-gather local format — and solve to
     the right answer, including the steady-state value update."""
     import dataclasses
 
@@ -259,9 +259,8 @@ def test_dist_gdia_local_stack():
                                atol=1e-7)
 
 
-# ---- self-neighbor halo (single-chip halo-exchange evidence, VERDICT r3
-# item 1): forced/self halo routes execute a real ppermute round even on a
-# one-device mesh -------------------------------------------------------
+# ---- self-neighbor halo: forced/self halo routes execute a real
+# ppermute round even on a one-device mesh -------------------------------------------------------
 
 
 def _periodic_ring_coo(n, diag=2.1):

@@ -271,7 +271,7 @@ def test_dist_foam_residual_history_export(tmp_path, monkeypatch):
 
 
 def test_dist_single_device_iteration_parity():
-    """BASELINE.md target 3 / VERDICT r2 item 3: a distributed solve on ONE
+    """BASELINE.md target 3: a distributed solve on ONE
     shard has no halo and must take (within rounding) the same iteration
     count as the single-device path — across steady-state solves too (the
     r2 drift came from adaptMinIter fed by an RTT-inflated residual-eval

@@ -3,6 +3,7 @@ GKO* solver API with registry caching, adaptMinIter across solves, export."""
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -11,6 +12,7 @@ from ogl_tpu import testing as problems
 from ogl_tpu.config import parse_controls
 from ogl_tpu.core import ldu, mtx
 from ogl_tpu.foam import dictionary
+from ogl_tpu.kernels import spmv
 
 FV_SOLUTION = """
 // fvSolution-style input
@@ -411,32 +413,27 @@ def test_regenerate_forces_rebuild():
     np.testing.assert_allclose(np.asarray(x2), x_true / 2, atol=1e-6)
 
 
-def test_matrix_format_auto_routing(monkeypatch):
-    """On an accelerator, an unspecified matrixFormat auto-routes to the
-    fastest representable format (Dia for stencils); explicit formats are
-    honored (VERDICT round 1, Weak #4)."""
-    import types
-
+@pytest.mark.parametrize("fmt", [None, "Coo", "Csr", "Ell", "Dia", "Sell"])
+def test_matrix_format_is_used_as_named(fmt):
+    """The device format is the one `matrixFormat` names, on every device;
+    unset means the reference default Coo (no platform-dependent
+    re-routing)."""
     from ogl_tpu import testing as problems
     from ogl_tpu.core import formats, ldu
     from ogl_tpu.foam.solver import FoamSolver
 
-    coo = ldu.ldu_to_coo(problems.poisson_ldu((12, 12)))
-    fake_tpu = types.SimpleNamespace(platform="tpu")
-
-    fs = FoamSolver("ar", {"solver": "GKOCG", "executor": "reference"})
-    monkeypatch.setattr(fs, "device", fake_tpu)
-    assert isinstance(fs._convert(coo), formats.Dia)
-    assert fs._fmt_used == "Dia"
-
-    fs2 = FoamSolver("ar2", {"solver": "GKOCG", "matrixFormat": "Coo",
-                             "executor": "reference"})
-    monkeypatch.setattr(fs2, "device", fake_tpu)
-    assert isinstance(fs2._convert(coo), formats.Coo)
-
-    # on CPU ("reference" executor) the named format is used as-is
-    fs3 = FoamSolver("ar3", {"solver": "GKOCG", "executor": "reference"})
-    assert isinstance(fs3._convert(coo), formats.Coo)
+    coo = ldu.ldu_to_coo_host(problems.poisson_ldu((12, 12)))
+    controls = {"solver": "GKOCG", "executor": "reference"}
+    if fmt is not None:
+        controls["matrixFormat"] = fmt
+    fs = FoamSolver(f"fmt_{fmt}", controls)
+    mat = fs._convert(coo)
+    want = fmt or "Coo"
+    assert type(mat).__name__ == want and fs._fmt_used == want
+    x = np.random.default_rng(0).normal(size=coo.shape[0])
+    np.testing.assert_allclose(
+        np.asarray(spmv.spmv(mat, jnp.asarray(x))),
+        formats.to_dense(coo) @ x, atol=1e-10)
 
 
 def test_foam_matrix_format_hybrid():

@@ -1,4 +1,4 @@
-"""Gdia (generalized block-row DIA with lane gathers) — the TPU-native
+"""Gdia (generalized block-row DIA with lane gathers) — a banded
 unstructured SpMV format — plus RCM renumbering."""
 
 import jax.numpy as jnp
@@ -8,7 +8,8 @@ import pytest
 from ogl_tpu import testing as problems
 from ogl_tpu.core import formats, ldu
 from ogl_tpu.core.reorder import bandwidth, permute_coo, rcm_permutation
-from ogl_tpu.kernels.gdia import gdia_from_coo, gdia_matvec, spmv_gdia
+from ogl_tpu.kernels import spmv
+from ogl_tpu.kernels.gdia import gdia_from_coo, spmv_gdia
 
 
 def _random_sparse(rng, n=300, density=0.02):
@@ -64,23 +65,25 @@ def test_gdia_collision_planes(rng):
 
 
 @pytest.mark.parametrize("dims", [(64, 4, 2), (200,)])
-def test_gdia_pallas_matches_xla(rng, dims):
+def test_gdia_matvec_matches_dense(rng, dims):
+    """The format-dispatched matvec on a Gdia container equals the dense
+    operator at f32 (the dispatch the solvers capture in their loops)."""
     m = problems.poisson_ldu(dims)
     coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
     g = gdia_from_coo(coo)
-    x = jnp.asarray(rng.normal(size=m.n).astype(np.float32))
-    y_ref = np.asarray(spmv_gdia(g, x))
-    y = np.asarray(gdia_matvec(g, tile=16, interpret=True)(x))
-    np.testing.assert_allclose(y, y_ref, atol=1e-4 * max(1, np.abs(y_ref).max()))
+    x = rng.normal(size=m.n).astype(np.float32)
+    y = np.asarray(spmv.matvec(g)(jnp.asarray(x)))
+    ref = formats.to_dense(coo).astype(np.float64) @ x
+    np.testing.assert_allclose(y, ref, atol=1e-4 * max(1, np.abs(ref).max()))
 
 
-def test_gdia_pallas_unstructured_rcm(rng):
+def test_gdia_matvec_unstructured_rcm(rng):
     a = _random_sparse(rng, n=400)
     coo = formats.coo_from_dense(a.astype(np.float32))
     perm = rcm_permutation(coo)
     pc = permute_coo(coo, perm)
     g = gdia_from_coo(pc, max_planes=512)
     x = rng.normal(size=400).astype(np.float32)
-    y = np.asarray(gdia_matvec(g, tile=16, interpret=True)(jnp.asarray(x[perm])))
+    y = np.asarray(spmv.matvec(g)(jnp.asarray(x[perm])))
     ref = (a @ x)[perm]
     np.testing.assert_allclose(y, ref, atol=1e-3 * max(1, np.abs(ref).max()))

@@ -1,11 +1,11 @@
-"""basisPrecision bfloat16 (VERDICT r03 item 6b): GMRES stores the Krylov
+"""basisPrecision bfloat16: GMRES stores the Krylov
 basis V at bf16 while H, the Givens chain, dots and x stay full precision.
 
 Accuracy argument: x accumulates across restart cycles in full precision,
 each cycle's bf16 recombination error shrinks with that cycle's correction
 (defect correction), and the materialised OpenFOAM criterion always
 evaluates the TRUE residual — so there is no false convergence, only
-(slightly) more iterations.  TPU-native HBM-traffic lever; no reference
+(slightly) more iterations.  A memory-traffic lever; no reference
 analogue (Ginkgo's Gmres stores the basis at solver precision)."""
 
 import jax.numpy as jnp
@@ -56,7 +56,7 @@ def test_bf16_basis_converges_to_true_tolerance():
 
 
 def test_iteration_parity_in_the_relTol_regime():
-    """VERDICT r03 item 6 'iteration counts within ±2'.  The attainable
+    """Iteration counts within ±2 of the f32 basis.  The attainable
     in-cycle reduction of a bf16-stored basis is ~eps_bf16 (~2.4 decades)
     relative to the cycle-start residual, so parity holds exactly in the
     regime OpenFOAM actually runs GMRES in — relTol 1e-2..1e-3 per
@@ -177,7 +177,7 @@ def test_dist_gmres_bf16_basis():
 
 
 def test_ill_conditioned_no_restart_pathology():
-    """VERDICT r04 weak 6: the restart heuristics (8-iter window, 0.7
+    """The restart heuristics (8-iter window, 0.7
     ratio, 8x slack) were tuned on well-behaved operators; an
     ill-conditioned case must not restart pathologically (which would
     inflate iterations unboundedly and regress silently).  1000:1

@@ -2,6 +2,8 @@
 with its NumPy fallback (the fallback is the reference semantics, pinned by
 the 5×5 fixtures in test_ldu.py)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -220,3 +222,62 @@ def test_native_dia_layout_matches_numpy(rng):
         dest_ref, weights=vals.astype(np.float64),
         minlength=len(offs_ref) * n).astype(np.float32).reshape(-1, n)
     np.testing.assert_array_equal(np.asarray(d.data), data_ref)
+
+
+# --- build keying: a library built elsewhere is never loaded ---------------
+
+@pytest.fixture
+def private_build(monkeypatch, tmp_path):
+    """The loader pointed at a private copy of the source and build dir,
+    with its load cache reset (restored afterwards)."""
+    import shutil
+
+    import ogl_tpu.native as nat_mod
+
+    src = tmp_path / "ogl_host.cpp"
+    shutil.copy(nat_mod._SRC, src)
+    monkeypatch.setattr(nat_mod, "_SRC", str(src))
+    monkeypatch.setattr(nat_mod, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(nat_mod, "_lib", None)
+    monkeypatch.setattr(nat_mod, "_tried", False)
+    return nat_mod, src
+
+
+def test_build_key_tracks_source(private_build):
+    nat_mod, src = private_build
+    k1 = nat_mod.build_key(str(src))
+    src.write_text(src.read_text() + "\n// changed\n")
+    assert nat_mod.build_key(str(src)) != k1
+
+
+def test_build_key_tracks_host(private_build, monkeypatch):
+    import platform
+
+    nat_mod, src = private_build
+    k1 = nat_mod.build_key(str(src))
+    monkeypatch.setattr(platform, "node", lambda: "another-host")
+    assert nat_mod.build_key(str(src)) != k1
+
+
+def test_changed_source_is_rebuilt(private_build):
+    nat_mod, src = private_build
+    assert nat_mod.lib() is not None
+    first = nat_mod.library_path(str(src))
+    assert os.path.exists(first)
+    src.write_text(src.read_text() + "\n// changed\n")
+    nat_mod._lib, nat_mod._tried = None, False
+    assert nat_mod.lib() is not None
+    second = nat_mod.library_path(str(src))
+    assert second != first and os.path.exists(second)
+
+
+def test_foreign_library_is_not_loaded(private_build):
+    """A library under any other name (another host's key, the old
+    unkeyed name) is ignored: the loader builds its own."""
+    nat_mod, src = private_build
+    os.makedirs(nat_mod._BUILD)
+    for name in ("libogl_host.so", "libogl_host-0123456789abcdef.so"):
+        with open(os.path.join(nat_mod._BUILD, name), "wb") as f:
+            f.write(b"not a library")
+    assert nat_mod.lib() is not None
+    assert os.path.exists(nat_mod.library_path(str(src)))

@@ -227,8 +227,8 @@ def test_grid_transfers_are_transposes():
 def test_grid_amg_beats_natural_and_scales():
     """Geometric 2x-per-axis coarsening must (a) converge in fewer CG
     iterations than 1-D natural aggregation and (b) be near
-    grid-independent (iters grow slowly with size) — the property the
-    round-3 VERDICT's 96-iter 8.4M data point was missing."""
+    grid-independent (iters grow slowly with size) — the property 1-D
+    natural aggregation lacks (96 iterations at 8.4M)."""
     iters = {}
     for dims in [(16, 16), (32, 32)]:
         m = problems.poisson_ldu(dims)
@@ -249,35 +249,22 @@ def test_grid_amg_beats_natural_and_scales():
     assert iters[(32, 32)] <= iters[(16, 16)] + 5, iters
 
 
-def test_amg_framed_cycle_matches_flat(poisson, monkeypatch):
-    """The fused framed cycle (Pallas ksweep/kresid in interpret mode) must
-    reproduce the flat XLA cycle bit-for-bit-ish."""
-    import sys
-
-    amgmod = sys.modules["ogl_tpu.precond.amg"]
+def test_amg_cycle_f32_tracks_f64(poisson):
+    """One AMG cycle applied in f32 agrees with the same cycle in f64 to
+    f32 rounding: the dense coarse solve and the smoothers run at full
+    f32 precision (no reduced-precision matmul)."""
     coo, a, b, x_true = poisson
-
-    def interpret_plan(mat, inv_diag):
-        from ogl_tpu.core.formats import Dia
-        from ogl_tpu.kernels.fused import CgKernels
-
-        if not isinstance(mat, Dia) or not mat.offsets:
-            return None, None, None
-        try:
-            plan = CgKernels(mat.shape[0], mat.offsets, tile=16, interpret=True)
-        except ValueError:
-            return None, None, None
-        return plan, plan.pack_values(mat), plan.frame(inv_diag)
-
-    flat = precond.amg(coo, width=4)
-    assert all(lv.plan is None for lv in flat.state)  # CPU: fused gated off
-    monkeypatch.setattr(amgmod, "_fused_plan", interpret_plan)
-    fused = precond.amg(coo, width=4)
-    assert any(lv.plan is not None for lv in fused.state)
-    r = jnp.asarray(np.asarray(b, np.float32))
-    zf = np.asarray(fused(r))
-    zl = np.asarray(flat(r))
-    np.testing.assert_allclose(zf, zl, rtol=5e-5, atol=5e-5 * np.abs(zl).max())
+    op64 = precond.amg(coo, width=4)
+    coo32 = formats.Coo(rows=coo.rows, cols=coo.cols,
+                        vals=jnp.asarray(np.asarray(coo.vals), jnp.float32),
+                        shape=coo.shape)
+    op32 = precond.amg(coo32, width=4)
+    r = np.asarray(b, np.float64)
+    z64 = np.asarray(op64(jnp.asarray(r)))
+    z32 = np.asarray(op32(jnp.asarray(r, jnp.float32)))
+    assert z32.dtype == np.float32
+    np.testing.assert_allclose(z32, z64, rtol=1e-4,
+                               atol=1e-4 * np.abs(z64).max())
 
 
 def test_amg_coarse_direct_vs_cg(poisson):

@@ -163,7 +163,7 @@ def test_nonzero_initial_guess():
 def test_iteration_parity_across_precisions():
     """BASELINE.md metric 3: iteration parity between the 'reference
     executor' setting (float64, the reference CI's CPU fallback) and the
-    TPU-style float32 path — same system, same criterion."""
+    float32 device path — same system, same criterion."""
     mat64, a, b64, _ = _setup((16, 16))
     ops64 = single_device_ops(spmv.matvec(mat64), b64.shape[0])
     cfg = StoppingConfig(tolerance=1e-6, rel_tol=0.0, max_iter=500)

@@ -85,18 +85,7 @@ def test_roofline_model_positive(rng):
         m = conv(formats.coo_from_dense(a))
         assert roofline.spmv_bytes(m) > 0
         assert roofline.spmv_flops(m) > 0
-    assert roofline.hbm_peak_gbps() > 0
-
-
-def test_pallas_usable_rejects_x64(monkeypatch):
-    """Mosaic cannot lower the Pallas kernels in an x64-enabled process
-    (i64 leaks into slice/rotate indices; deeper legalisation fails) —
-    the routing helper must refuse even on a TPU backend.  The test env
-    runs with jax_enable_x64=True (conftest), so faking the backend to
-    'tpu' must still report unusable."""
-    import jax
-
-    from ogl_tpu.kernels import spmv as _s
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _s.pallas_usable() is False
+    # the CPU has no entry in the published-peak table: an error, never a
+    # silent default denominator
+    with pytest.raises(KeyError):
+        roofline.hbm_peak_gbps()

@@ -1,5 +1,5 @@
-"""Exact triangular solves for ILU/IC (`triSolve exact`, VERDICT r04
-missing 3) and the convergence-parity study justifying the approximate
+"""Exact triangular solves for ILU/IC (`triSolve exact`) and the
+convergence-parity study justifying the approximate
 default.
 
 The reference's default ILU/IC apply Ginkgo's EXACT sparse triangular

@@ -1,4 +1,4 @@
-"""uploadPrecision bfloat16 (VERDICT r03 item 6a): error-feedback bf16
+"""uploadPrecision bfloat16: error-feedback bf16
 delta encoding of the steady-state coefficient/RHS uploads.
 
 The mirror advances by exactly the quantised delta the device adds, so

@@ -1,4 +1,4 @@
-"""Xell (crossed-gather ELL) — the TPU fast path for fully unstructured
+"""Xell (crossed-gather ELL) — the format for fully unstructured
 sparsity beyond the Gdia plane budget (reference role: device-fast Csr for
 any sparsity, CsrMatrixWrapper.H:138-161)."""
 
@@ -11,7 +11,7 @@ from ogl_tpu.core import formats, ldu
 from ogl_tpu.core.reorder import permute_coo, rcm_permutation
 from ogl_tpu.kernels import spmv
 from ogl_tpu.kernels.xell import (
-    xell_from_coo, xell_layout, xell_matvec, xell_to_coo, spmv_xell)
+    xell_from_coo, xell_layout, xell_to_coo, spmv_xell)
 
 
 def _random_graph_coo(rng, n=2000, k=5, dtype=np.float64):
@@ -67,12 +67,14 @@ def test_xell_structured_stencil(rng):
     np.testing.assert_allclose(np.asarray(y), a @ x, rtol=1e-10, atol=1e-10)
 
 
-def test_xell_kernel_interpret(rng):
+def test_xell_matvec_f32(rng):
+    """The format-dispatched matvec on an f32 Xell container (the dispatch
+    the solvers capture) equals the dense operator."""
     coo = _rcm(_random_graph_coo(rng, n=900, dtype=np.float32))
     m = xell_from_coo(coo)
     a = formats.to_dense(coo)
     x = rng.normal(size=coo.shape[0]).astype(np.float32)
-    y = xell_matvec(m, interpret=True)(jnp.asarray(x))
+    y = spmv.matvec(m)(jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), a @ x, rtol=2e-5, atol=2e-5)
 
 

@@ -1,4 +1,4 @@
-"""The xplane.pb reader behind the bench's device-timeline cross-check
+"""The xplane.pb reader behind the device-timeline measurements
 (kernels/xplane.py).  The wire bytes are hand-assembled here from the
 protobuf encoding spec, so the test pins the exact subset of
 tensorflow/core/profiler/protobuf/xplane.proto the parser relies on —
@@ -58,14 +58,14 @@ def _write_capture(tmp_path, space: bytes) -> str:
 
 def test_parse_synthetic_space(tmp_path):
     space = _build_space(
-        b"/device:TPU:0", ts_ns=1000,
+        b"/device:GPU:0", ts_ns=1000,
         events=[(1, 0, 2000), (2, 1000, 2000), (1, 10_000, 1000)],
         meta={1: b"fusion.1", 2: b"copy.2"})
     d = _write_capture(tmp_path, space)
     planes = xplane.parse_xspace(xplane.latest_xplane_file(d))
     assert len(planes) == 1
     (p,) = planes
-    assert p.name == "/device:TPU:0"
+    assert p.name == "/device:GPU:0"
     assert p.event_names == {1: "fusion.1", 2: "copy.2"}
     (ln,) = p.lines
     assert ln.timestamp_ns == 1000 and len(ln.events) == 3
@@ -76,32 +76,45 @@ def test_busy_union_collapses_overlap(tmp_path):
     # events 1+2 overlap ([0,2000] U [1000,3000] = 3000 ps); event 3 is
     # disjoint (1000 ps) -> union 4000 ps, raw sum 5000 ps
     space = _build_space(
-        b"/device:TPU:0", ts_ns=1000,
+        b"/device:GPU:0", ts_ns=1000,
         events=[(1, 0, 2000), (2, 1000, 2000), (1, 10_000, 1000)],
         meta={1: b"fusion.1", 2: b"copy.2"})
     d = _write_capture(tmp_path, space)
     busy = xplane.device_busy_seconds(d)
-    assert busy == {"/device:TPU:0": 4000 / 1e12}
+    assert busy == {"/device:GPU:0": 4000 / 1e12}
     raw = xplane.device_busy_seconds(d, collapse_overlap=False)
-    assert raw == {"/device:TPU:0": 5000 / 1e12}
+    assert raw == {"/device:GPU:0": 5000 / 1e12}
 
 
 def test_busy_name_filter(tmp_path):
     space = _build_space(
-        b"/device:TPU:0", ts_ns=0,
+        b"/device:GPU:0", ts_ns=0,
         events=[(1, 0, 2000), (2, 5000, 500)],
         meta={1: b"fusion.1", 2: b"copy.2"})
     d = _write_capture(tmp_path, space)
     busy = xplane.device_busy_seconds(d, name_contains="copy")
-    assert busy == {"/device:TPU:0": 500 / 1e12}
+    assert busy == {"/device:GPU:0": 500 / 1e12}
+
+
+def test_line_counts_per_device_line(tmp_path):
+    # kernel count per stream line = event count (the per-iteration kernel
+    # count of a traced solve divides this by its iteration count)
+    space = (_build_space(b"/host:CPU", 0, [(1, 0, 9000)], {1: b"py"})
+             + _build_space(b"/device:GPU:0", 0,
+                            [(1, 0, 100), (2, 200, 300), (1, 900, 100)],
+                            {1: b"k1", 2: b"k2"}))
+    d = _write_capture(tmp_path, space)
+    summary = xplane.device_line_summary(d)
+    assert summary == {("/device:GPU:0", "XLA Ops"): (
+        3, 500 / 1e12, {"k1": (2, 200 / 1e12), "k2": (1, 300 / 1e12)})}
 
 
 def test_host_planes_excluded(tmp_path):
     space = (_build_space(b"/host:CPU", 0, [(1, 0, 9000)], {1: b"py"})
-             + _build_space(b"/device:TPU:0", 0, [(1, 0, 100)], {1: b"k"}))
+             + _build_space(b"/device:GPU:0", 0, [(1, 0, 100)], {1: b"k"}))
     d = _write_capture(tmp_path, space)
     busy = xplane.device_busy_seconds(d)
-    assert list(busy) == ["/device:TPU:0"]
+    assert list(busy) == ["/device:GPU:0"]
 
 
 def test_live_capture_parses(tmp_path):
